@@ -5,24 +5,34 @@
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch, CUDA, nvcc, Triton;
-  2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``;
+  2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``
+     (one nvcc per source, side by side);
   3. kernels against their plain PyTorch versions on the card: the Viterbi
      ACS and traceback kernels on the Viterbi goldens and on random inputs
      (bit-exact), the fused Monte-Carlo kernel on the BSC golden counters
      and against its plain version (BSC exact, AWGN at most 1% of lanes
-     different — log/sqrt/sin/cos differ in the last ulp);
-  4. the main path: the CLI's code-0 AWGN and BSC Viterbi sweeps (fused
-     kernel) and the modular chain (ACS + traceback kernels), with launch
-     counters reset before and read after; every point with a published
-     BER must pass the clustered z-check (|z| < 4.5);
+     different — log/sqrt/sin/cos differ in the last ulp); the stack and
+     Fano Monte-Carlo kernels on every stack/Fano golden (bit-exact, through
+     their supplied-frames entry) and per lane against their plain versions
+     (BSC exact; AWGN exact on the kernels' own frames, and the lanes that
+     differ on the plain version's frames counted);
+  4. the main paths, each with every launch counter reset before and read
+     after: (a) the CLI's code-0 AWGN and BSC Viterbi sweeps (fused kernel)
+     and the modular chain (ACS + traceback kernels); (b) the CLI's code-0
+     AWGN stack sweep and the sweep's stack point function at the recorded
+     BSC spec; (c) the same for Fano.  Every point with a published BER
+     must pass the clustered z-check (|z| < 4.5), and every BSC stack/Fano
+     point must equal its committed record in results/ exactly;
   5. throughput at the headline shape (code 0, 8 dB, 2^20 lanes, 16
-     in-kernel steps) and each kernel's time beside its plain version's.
+     in-kernel steps), the sequential kernels at full width (8192 lanes,
+     timeout 10000 per bit), and each kernel's time beside its plain
+     version's and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
-difference from the plain version and both times.  Without CUDA, or
-without the package beside it, the script exits non-zero and prints no
-result.
+difference from the plain version, both times and its bound.  Without
+CUDA, or without the package beside it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -40,8 +50,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 C_CORE_BITS_PER_S = 6.6e6        # reference C core, AWGN soft Viterbi (BASELINE.md)
+#: reference C core, code 0 AWGN soft at 0 dB (BASELINE.md:58-59)
+C_CORE_SEQ_BITS_PER_S = {"stack": 1.4e5, "fano": 7.1e3}
 PUBLISHED_BER_8DB = 1.3756e-4    # results/awgn_channel.m, code 0 at 8 dB
 Z_MAX = 4.5
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+#: lane-instructions per cycle and SM (4 schedulers x 32 lanes) and SMs
+LANE_SLOTS_PER_SM, SMS = 128, 132
+#: estimated instructions per walk iteration (not measured: ncu does not
+#: run on the card's machine): the stack's 64-slot best/worst scan at ~5
+#: per slot plus ~30 for the extension; the Fano step's ~40
+INSTR_PER_ITER = {"mc_stack": 350, "mc_fano": 40}
 
 
 def require(cond, what: str) -> None:
@@ -67,6 +86,14 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -203,6 +230,78 @@ def check_fused_kernel(torch, dev, stats):
     compare(get_code(0), 1 << 20, 1, 5, float(awgn_sigma(8.0)), "awgn", "soft")
 
 
+SEQ_PHASE3 = {  # (code, channel, point, demapper[, timeout_per_bit]); 1024 lanes x 2
+    "stack": [(0, "bsc", 0.05, "soft"), (0, "awgn", 6.0, "soft"), (0, "awgn", 5.0, "hard"),
+              (5, "awgn", 4.0, "soft"), ("wspr-k32", "awgn", 4.0, "soft"),
+              ("wspr-k32", "bsc", 0.02, "soft"), ("k9-r12", "awgn", 4.0, "soft")],
+    "fano": [(0, "awgn", 2.0, "soft", 40), (0, "bsc", 0.05, "soft", 60),
+             (0, "awgn", 4.0, "hard", 40), (5, "awgn", 3.0, "soft", 50),
+             ("wspr-k32", "awgn", 5.0, "soft", 25), ("wspr-k32", "bsc", 0.02, "soft", 30),
+             ("k9-r12", "bsc", 0.03, "soft", 50), ("k15-r14-16qam", "awgn", 5.0, "soft", 50)],
+}
+
+
+def check_sequential_kernels(torch, dev, stats):
+    """Kernels 7-8: every stack/Fano golden through their supplied-frames
+    entry (bit-exact), the frames entry against frames_host, and the
+    Monte-Carlo kernels per lane against their plain versions."""
+    import glob
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fano, fano_mc, mc_datagen, stack, stack_mc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+
+    files = sorted(glob.glob(os.path.join(GOLDENS, "stack_*.npz"))
+                   + glob.glob(os.path.join(GOLDENS, "fano_*.npz")))
+    for path in files:
+        g = np.load(path)
+        name = os.path.basename(path)
+        code = get_code(0 if "fma" in name else int(name.split("_")[2]))
+        x = torch.as_tensor(g["dists"] if "dists" in g else g["received"], device=dev)
+        decode = stack_mc.stack_decode_cuda if name.startswith("stack") else fano_mc.fano_decode_cuda
+        require(np.array_equal(decode(code, x).cpu().numpy(), g["decoded"]),
+                f"kernel device code on golden {name}")
+    print(f"stack/Fano goldens through kernels 7-8: {len(files)}/{len(files)} files bit-exact "
+          "(incl. fano_fma_regression.npz)")
+
+    for decoder, cases in SEQ_PHASE3.items():
+        mc, ref = ((stack_mc.mc_stack, stack_mc.mc_stack_ref) if decoder == "stack"
+                   else (fano_mc.mc_fano, fano_mc.mc_fano_ref))
+        for ck, channel, point, demapper, *tpb in cases:
+            code = get_code(ck)
+            param = float(awgn_sigma(point)) if channel == "awgn" else point
+            kw = {"timeout_per_bit": tpb[0]} if tpb else {}
+            lanes, fpl, seed = 1024, 2, 42
+            k = mc(code, lanes, fpl, seed, param, channel, demapper, device=dev, **kw)
+            r = ref(code, lanes, fpl, seed, param, channel, demapper, device=dev, **kw)
+            diff = int((k != r).any(0).sum())
+            tag = f"{decoder} kernel vs plain {code.name} {channel}/{demapper}"
+            if channel == "bsc":
+                require(diff == 0, f"{tag}: {diff} lanes differ")
+                stats["mc_" + decoder] = max(stats["mc_" + decoder],
+                                             float((k - r).abs().max()))
+                print(f"{tag}: 0/{lanes} lanes differ (exact), bit errors {int(k[0].sum())}, "
+                      f"iterations {int(k[2].sum())}")
+                continue
+            # AWGN: decode the kernel's own frames with the plain decoder
+            gids = torch.arange(lanes * fpl, device=dev)
+            bits, syms = mc_datagen.frames_cuda(code, gids, seed, param, channel, demapper)
+            if decoder == "stack":
+                dec, _, iters = stack.stack_machine(code, syms, True)
+            else:
+                dec, diag = fano.fano_machine(code, syms, True, tpb[0])
+                iters = diag["iters"]
+            own = torch.zeros_like(k)
+            stack_mc.count_errors(own, gids // fpl, dec, bits, iters)
+            own_diff = int((k != own).any(0).sum())
+            require(own_diff == 0, f"{tag} on the kernel's own frames: {own_diff} lanes differ")
+            stats["mc_" + decoder] = max(stats["mc_" + decoder], float((k - own).abs().max()))
+            fb, _ = mc_datagen.frames_host(code, gids, seed, param, channel, demapper, dev)
+            require(torch.equal(fb, bits), f"{tag}: frame bits differ")
+            print(f"{tag}: 0/{lanes} lanes differ on the kernel's own frames (exact); "
+                  f"{diff}/{lanes} lanes differ on the plain datagen's frames; "
+                  f"bit errors {int(k[0].sum())} vs {int(r[0].sum())}")
+
+
 def run_main_path(torch, dev, gold, tmp):
     """The CLI's two code-0 sweeps and the modular chain; returns the
     z-checked rows."""
@@ -239,9 +338,47 @@ def run_main_path(torch, dev, gold, tmp):
     return results
 
 
-def check_points(results, gold):
+def run_sequential_path(torch, dev, tmp, decoder: str, scale: str, grid_idx):
+    """A stack or Fano main path: the CLI's code-0 AWGN sweep at a reduced
+    ``--bits-scale``, then the sweep's own point function at the recording
+    spec of results/bsc_<decoder>_0.jsonl (code 0, BSC, seed 1234, base 8e8,
+    default grid) for the grid indices given; each of those must reproduce
+    its committed counters exactly.  Returns the AWGN rows for the z-check."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.sim import cli
+    from convolutional_codes_tpu_torch.sim.sweep import (
+        BSC_CROSSOVER_GRID, PointRecord, SweepSpec, seq_plan, sequential_point, target_bits)
+    from convolutional_codes_tpu_torch.utils.records import read_jsonl
+
+    path = os.path.join(tmp, f"awgn_{decoder}_0.jsonl")
+    rc = cli.main(["awgn", "--code", "0", "--decoder", decoder, "--bits-scale", scale,
+                   "--jsonl", path])
+    require(rc == 0, f"cli awgn {decoder} returned {rc}")
+    results = [("awgn", r) for r in read_jsonl(path, PointRecord)]
+
+    code = get_code(0)
+    spec = SweepSpec(code=0, channel="bsc", decoder=decoder, seed=1234, base_bits=8e8)
+    with open(os.path.join(ROOT, "results", f"bsc_{decoder}_0.jsonl")) as f:
+        recorded = [json.loads(line) for line in f if line.strip()]
+    for i in grid_idx:
+        point = BSC_CROSSOVER_GRID[i]
+        t0 = time.time()
+        be, fe, nb, wb, ww = sequential_point(spec, code, i, point, float(point), dev)
+        wall = time.time() - t0
+        rec = recorded[i]
+        lanes, fpl = seq_plan(target_bits(spec, point), code.block_length)
+        same = (be, fe, nb) == (rec["bit_errors"], rec["frame_errors"], rec["bits"])
+        print(f"  bsc {decoder} p={point:g} ({lanes} lanes x {fpl}): bits={nb} "
+              f"bit_errors={be} frame_errors={fe} vs recorded {rec['bits']} "
+              f"{rec['bit_errors']} {rec['frame_errors']}: {'equal' if same else 'DIFFERENT'}; "
+              f"wall {wall:.2f} s, warm {wb / ww if ww else float('nan'):.4e} bits/s")
+        require(same, f"bsc {decoder} point {point}: counters differ from results/")
+    return results
+
+
+def check_points(results, gold, row="ber_coded_a"):
     for channel, r in results:
-        z = z_score(r, channel, "ber_coded_a", gold)
+        z = z_score(r, channel, row, gold)
         ztxt = "n/a (published 0)" if z is None else f"{z:+.2f}"
         print(f"  {channel} {r.decoder} point={r.point:g} bits={r.bits} "
               f"errors={r.bit_errors} BER={r.ber:.4e} z={ztxt} "
@@ -250,8 +387,9 @@ def check_points(results, gold):
                 f"{channel} point {r.point}: BER {r.ber:.4e}, z={ztxt}")
 
 
-def measure(torch, dev, card):
-    """Headline throughput and each kernel's time beside its plain version."""
+def measure(torch, dev, card, clock):
+    """Headline throughput and each kernel's time beside its plain version
+    and its bound."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
@@ -303,10 +441,92 @@ def measure(torch, dev, card):
     plain["acs_forward"] = cuda_ms(lambda: vc.acs_forward_ref(code, dists, init, False), 3)
     times["traceback"] = cuda_ms(lambda: vc.traceback_cuda(code, dec, fm), 20)
     plain["traceback"] = cuda_ms(lambda: vc.traceback_ref(code, dec, fm), 3)
+    nw = (S + 31) // 32
+    bound = {   # (ms, what bounds it): each input read once, each output written once
+        "acs_forward": ((T * M + 2 * S + T * nw) * 4 * Bv / HBM_BYTES_PER_S * 1e3, "bytes"),
+        "traceback": ((T * nw + S + T + 1) * 4 * Bv / HBM_BYTES_PER_S * 1e3, "bytes"),
+        # ~150 lane-instructions per trellis symbol (PERF.md section 5 estimate)
+        "mc_chain": (B * T * 150 / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3, "operations"),
+    }
     for k in ("acs_forward", "traceback"):
         print(f"{k} [{card}]: code 0, B={Bv}: kernel {times[k]:.4f} ms, "
-              f"plain {plain[k]:.4f} ms")
-    return times, plain
+              f"plain {plain[k]:.4f} ms, bound {bound[k][0]:.4f} ms ({bound[k][1]})")
+    print(f"mc_chain bound: {bound['mc_chain'][0]:.4f} ms per step (operations)")
+    return times, plain, bound
+
+
+SEQ_RATES = [("stack", "k9-r12", 4.0), ("stack", "k9-r12", 8.0),
+             ("fano", "k15-r14-16qam", 8.0), ("stack", 0, 8.0), ("fano", 0, 8.0),
+             ("stack", 0, 0.0), ("fano", 0, 0.0)]
+
+
+def iteration_bound_ms(name: str, iters, clock: float) -> float:
+    """Least time for ``iters`` walk iterations at the card's instruction rate."""
+    return float(iters.sum()) * INSTR_PER_ITER[name] / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3
+
+
+def measure_sequential(torch, dev, card, clock):
+    """Kernels 7-8 at full width (8192 lanes, timeout 10000 per bit, warm
+    calls, fresh seeds, walls of about 2 s), the plain version at 64 lanes,
+    and each kernel beside its plain version at 256 lanes x 1 frame."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano, mc_fano_ref
+    from convolutional_codes_tpu_torch.ops.stack_mc import mc_stack, mc_stack_ref
+
+    fns = {"stack": (mc_stack, mc_stack_ref), "fano": (mc_fano, mc_fano_ref)}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for n, (decoder, ck, snr) in enumerate(SEQ_RATES):
+        mc, ref = fns[decoder]
+        code, sigma, lanes = get_code(ck), float(awgn_sigma(snr)), 8192
+        t0 = time.time()
+        mc(code, lanes, 1, 1, sigma, device=dev)
+        torch.cuda.synchronize()
+        fpl = max(1, min(4096, int(2.0 / max(time.time() - t0, 1e-4))))
+        start.record()
+        out = mc(code, lanes, fpl, 1000 + n, sigma, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        bits = lanes * fpl * code.block_length
+        rate = bits / ms * 1e3
+        iters = out[2]
+        div = float(iters.view(-1, 32).amax(dim=1).sum()) * 32 / float(iters.sum())
+        if decoder == "fano" and snr < 4.0:
+            # timeout-bound: every frame walks 10000 * T SEARCH steps, which
+            # the lockstep plain machine would take minutes over
+            plain_txt = "plain: not measured (timeout-bound)"
+        else:
+            t0 = time.time()
+            ref(code, 64, 1, 1000 + n, sigma, device=dev)
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+            plain_txt = (f"plain 64 lanes x 1: {plain_s * 1e3:.1f} ms "
+                         f"({64 * code.block_length / plain_s:.4e} info bits/s)")
+        print(f"{decoder} {code.name} AWGN soft {snr:g} dB [{card}]: {lanes} lanes x {fpl} "
+              f"frames: {rate:.6e} info bits/s ({rate / C_CORE_SEQ_BITS_PER_S[decoder]:.1f}x "
+              f"the {C_CORE_SEQ_BITS_PER_S[decoder]:.2g} C core at 0 dB), BER "
+              f"{float(out[0].sum()) / bits:.6e}, kernel {ms:.3f} ms per launch, iterations "
+              f"{int(iters.sum())} (max lane {int(iters.max())}, warp divergence {div:.3f}), "
+              f"bound {iteration_bound_ms('mc_' + decoder, iters, clock):.3f} ms; {plain_txt}")
+
+    code0, sigma8 = get_code(0), float(awgn_sigma(8.0))
+    times, plain, bound = {}, {}, {}
+    for decoder, (mc, ref) in fns.items():
+        name = "mc_" + decoder
+        out = mc(code0, 256, 1, 5, sigma8, device=dev)
+        times[name] = cuda_ms(lambda: mc(code0, 256, 1, 5, sigma8, device=dev), 5)
+        ref(code0, 256, 1, 5, sigma8, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref(code0, 256, 1, 5, sigma8, device=dev)
+        torch.cuda.synchronize()
+        plain[name] = (time.time() - t0) * 1e3
+        bound[name] = (iteration_bound_ms(name, out[2], clock), "operations")
+        print(f"{name} [{card}]: code 0 AWGN 8 dB, 256 lanes x 1 frame: kernel "
+              f"{times[name]:.4f} ms, plain {plain[name]:.4f} ms, bound {bound[name][0]:.4f} ms "
+              f"({int(out[2].sum())} iterations x {INSTR_PER_ITER[name]} instructions)")
+    return times, plain, bound
 
 
 def main() -> int:
@@ -334,6 +554,7 @@ def main() -> int:
         except ImportError as e:
             print(f"triton does not import: {e}")
 
+    from convolutional_codes_tpu_torch.ops import fano_mc, stack_mc
     from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
     from convolutional_codes_tpu_torch.ops import fused_chain as fc
     from convolutional_codes_tpu_torch.utils import build
@@ -344,11 +565,13 @@ def main() -> int:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
 
     wrappers = {"acs_forward": vc.acs_forward_cuda, "traceback": vc.traceback_cuda,
-                "mc_chain": fc.mc_chain_viterbi}
+                "mc_chain": fc.mc_chain_viterbi, "mc_stack": stack_mc.mc_stack,
+                "mc_fano": fano_mc.mc_fano}
     stats = {k: 0.0 for k in wrappers}
     with phase("3 kernels against their plain versions"):
         check_viterbi_kernels(torch, dev, stats)
         check_fused_kernel(torch, dev, stats)
+        check_sequential_kernels(torch, dev, stats)
         for k, w in wrappers.items():
             require(w.launches > 0, f"kernel {k} was never launched")
         print("launches in the checks: " + ", ".join(
@@ -356,32 +579,49 @@ def main() -> int:
 
     with open(os.path.join(GOLDENS, "published_curves.json")) as f:
         gold = json.load(f)
-    with phase("4 main path"), tempfile.TemporaryDirectory() as tmp:
-        for w in wrappers.values():
-            w.launches = 0
-        results = run_main_path(torch, dev, gold, tmp)
-        launches = {k: w.launches for k, w in wrappers.items()}
-        print("launches on the main path: " + ", ".join(
-            f"{k}={n}" for k, n in launches.items()))
-        for k, n in launches.items():
-            require(n > 0, f"kernel {k} was not launched on the main path")
-        check_points(results, gold)
+    paths = {  # path -> (the kernels it must launch, how to drive it)
+        "viterbi": (("acs_forward", "traceback", "mc_chain"),
+                    lambda tmp: check_points(run_main_path(torch, dev, gold, tmp), gold)),
+        "stack": (("mc_stack",), lambda tmp: check_points(run_sequential_path(
+            torch, dev, tmp, "stack", "0.01", range(10, 17)), gold, "ber_coded_a_stack")),
+        "fano": (("mc_fano",), lambda tmp: check_points(run_sequential_path(
+            torch, dev, tmp, "fano", "0.01", range(10, 14)), gold, "ber_coded_a_fano")),
+    }
+    launches = {}
+    for path, (kernels, drive) in paths.items():
+        with phase(f"4 main path: {path}"), tempfile.TemporaryDirectory() as tmp:
+            for w in wrappers.values():
+                w.launches = 0
+            drive(tmp)
+            counts = {k: w.launches for k, w in wrappers.items()}
+            print(f"launches on the {path} path: " + ", ".join(
+                f"{k}={n}" for k, n in counts.items()))
+            for k in kernels:
+                require(counts[k] > 0, f"kernel {k} was not launched on the {path} path")
+                launches[k] = counts[k]
 
     with phase("5 throughput"):
-        card = card_line()
-        times, plain = measure(torch, dev, card)
+        card, clock = card_line(), sm_clock_hz()
+        print(f"max SM clock {clock / 1e6:.0f} MHz")
+        times, plain, bound = measure(torch, dev, card, clock)
+        for d in zip((times, plain, bound), measure_sequential(torch, dev, card, clock)):
+            d[0].update(d[1])
 
     require("jax" not in sys.modules, "the port imported JAX")
+    ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "convolutional_codes_tpu")
+    require(not ref_pkg, f"the port imported the JAX package: {ref_pkg}")
     print(f"total wall {time.time() - t_start:.1f} s")
-    sources = {"acs_forward": ("convolutional_codes_tpu_torch/csrc/viterbi.cu",
-                               "convolutional_codes_tpu/ops/viterbi_pallas.py:86"),
-               "traceback": ("convolutional_codes_tpu_torch/csrc/viterbi.cu",
-                             "convolutional_codes_tpu/ops/viterbi_pallas.py:207"),
-               "mc_chain": ("convolutional_codes_tpu_torch/csrc/fused_chain.cu",
-                            "convolutional_codes_tpu/ops/fused_chain.py:400")}
-    kernels = [{"name": k, "route": "cuda", "source": sources[k][0],
-                "replaces": sources[k][1], "launches": launches[k],
-                "max_abs_err": stats[k], "ms": times[k], "plain_ms": plain[k]}
+    sources = {"acs_forward": ("viterbi.cu", "viterbi_pallas.py:86"),
+               "traceback": ("viterbi.cu", "viterbi_pallas.py:207"),
+               "mc_chain": ("fused_chain.cu", "fused_chain.py:400"),
+               "mc_stack": ("stack_mc.cu", "stack_mc.py:84"),
+               "mc_fano": ("fano_mc.cu", "fano_mc.py:65")}
+    kernels = [{"name": k, "route": "cuda",
+                "source": f"convolutional_codes_tpu_torch/csrc/{sources[k][0]}",
+                "replaces": f"convolutional_codes_tpu/ops/{sources[k][1]}",
+                "launches": launches[k], "max_abs_err": stats[k], "ms": times[k],
+                "plain_ms": plain[k], "bound_ms": bound[k][0], "bound_by": bound[k][1],
+                "library_ms": None}
                for k in wrappers]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

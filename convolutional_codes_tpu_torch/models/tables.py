@@ -1,10 +1,10 @@
-"""Device copies of the reference's numpy code tables.
+"""Device copies of the port's numpy code tables.
 
 The code registry, the dense trellis and the constellations live in the
-reference's pure-numpy modules ``convolutional_codes_tpu.models.{codebook,
-trellis,constellations}`` (one copy of the tables and of the compat-parity
-quirk).  :func:`code_tables` turns them into tensors on one device, once
-per (code, device).
+port's pure-numpy modules ``models/{codebook,trellis,constellations}.py``
+(copies of the JAX package's, held equal by ``tests/test_torch_models.py``).
+:func:`code_tables` turns them into tensors on one device, once per
+(code, device).
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from convolutional_codes_tpu.models.codebook import PARITY_COMPAT, Code
-from convolutional_codes_tpu.models.constellations import (
+from convolutional_codes_tpu_torch.models.codebook import PARITY_COMPAT, Code
+from convolutional_codes_tpu_torch.models.constellations import (
     get_constellation, min_sq_distance, register_dependent_cache)
-from convolutional_codes_tpu.models.trellis import build_trellis, quirk_mask_low
+from convolutional_codes_tpu_torch.models.trellis import build_trellis, quirk_mask_low
 
 #: Largest constraint length with a dense trellis (models/trellis.py:130).
 DENSE_TRELLIS_MAX_K = 16

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from convolutional_codes_tpu.models.constellations import get_constellation, min_sq_distance
+from convolutional_codes_tpu_torch.models.constellations import get_constellation, min_sq_distance
 from convolutional_codes_tpu_torch.utils.bitops import first_argmin
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from convolutional_codes_tpu.models.codebook import Code
+from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.utils.bitops import parity32
 

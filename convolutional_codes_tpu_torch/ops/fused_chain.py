@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from convolutional_codes_tpu.models.codebook import Code
+from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.encoder import encode_tb
 from convolutional_codes_tpu_torch.ops.viterbi import (

@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from convolutional_codes_tpu.models.codebook import Code
-from convolutional_codes_tpu.models.constellations import get_constellation
+from convolutional_codes_tpu_torch.models.codebook import Code
+from convolutional_codes_tpu_torch.models.constellations import get_constellation
 
 
 def map_symbols_m(num_bits: int, symbols: torch.Tensor) -> torch.Tensor:

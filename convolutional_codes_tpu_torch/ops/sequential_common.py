@@ -1,0 +1,70 @@
+"""Shared machinery of the plain sequential decoders (stack, Fano).
+
+Big-constraint codes (WSPR K=32 → 2^31 states) rule out dense trellis
+tables, so the sequential decoders evaluate expected symbols from the
+encoder state with closed-form register math, compat-parity quirk
+included — the JAX package's ``ops/sequential_common.py``.  Register
+convention as in ``models/trellis.py``: ``r = state | input << (K-1)``
+(newest bit at K-1), successor state ``r >> 1``.  States are int64 holding
+32-bit values (CPU torch has no uint32 shifts).
+
+Products are rounded before they are added, as the C reference does: the
+soft metric is ``1 + fl(w * d)``.  Eager PyTorch runs ``w * d`` and
+``1 + _`` as two operations and never contracts them into an FMA, so the
+reference's ``force_rounded`` guard (against XLA-CPU's contraction) is the
+identity here and is left out.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from convolutional_codes_tpu_torch.models.codebook import Code
+from convolutional_codes_tpu_torch.models.tables import code_tables
+from convolutional_codes_tpu_torch.utils.bitops import parity32, popcount32
+
+
+def make_branch_fn(code: Code) -> Callable[[torch.Tensor, int],
+                                           Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns ``branch(state, input_bit) -> (next_state, esym)`` on int64
+    tensors of K-1-bit encoder states; symbols pack polynomial 0 at the MSB
+    like the encoder."""
+    K = code.constraint_length
+    tables = code_tables(code)
+
+    def branch(state: torch.Tensor, input_bit: int):
+        r = state | (input_bit << (K - 1))
+        sym = torch.zeros_like(r)
+        for p in tables.polynomials:
+            x = r & p
+            b = parity32(x)
+            if tables.quirk_mask:
+                b = b & (1 - parity32(x & tables.quirk_mask))
+            sym = (sym << 1) | b
+        return r >> 1, sym
+
+    return branch
+
+
+def soft_transition_metrics(weight: float, dists_row: torch.Tensor,
+                            esym0: torch.Tensor, esym1: torch.Tensor):
+    """``1 + weight * dist[esym]`` per branch (stack-decoder.c:274,
+    fano-decoder.c:309); ``dists_row`` [B, 2^m] float32."""
+    w = torch.tensor(float(weight), dtype=torch.float32)
+    d0 = dists_row.gather(1, esym0[:, None])[:, 0]
+    d1 = dists_row.gather(1, esym1[:, None])[:, 0]
+    return 1.0 + w * d0, 1.0 + w * d1
+
+
+def hard_transition_metrics(bit_metrics, symlen: int, rx_row: torch.Tensor,
+                            esym0: torch.Tensor, esym1: torch.Tensor):
+    """``hamming * wrong + (symlen - hamming) * correct`` as float32 (small
+    integers, exact) — binary-symmetric-channel/stack-decoder.c:267-272."""
+    correct, wrong = int(bit_metrics[0]), int(bit_metrics[1])
+    h0 = popcount32(esym0 ^ rx_row)
+    h1 = popcount32(esym1 ^ rx_row)
+    tm0 = h0 * wrong + (symlen - h0) * correct
+    tm1 = h1 * wrong + (symlen - h1) * correct
+    return tm0.to(torch.float32), tm1.to(torch.float32)

@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from convolutional_codes_tpu.models.codebook import Code
+from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.utils.bitops import MASK32, first_argmin, to_int32
 

@@ -22,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from convolutional_codes_tpu.models.codebook import Code
+from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.viterbi import (
     KERNEL_MAX_STATES, acs_scan, traceback_from)

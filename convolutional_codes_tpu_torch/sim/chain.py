@@ -10,8 +10,13 @@ Each chain mirrors one reference pipeline:
 
 A step takes (generator, channel_param) and returns the error counters of
 one batch of frames as device scalars.  The randomness comes from the
-caller's ``torch.Generator``, which must live on ``device``.  Only the
-Viterbi decoder is ported; the stack and Fano decoders raise.
+caller's ``torch.Generator``, which must live on ``device``.  The Viterbi
+decoder runs anywhere (the CUDA kernels on a card).  The stack and Fano
+decoders on supplied symbols run their plain versions on the CPU; on a
+card they raise until TPU kernels 9-10 are ported (ROADMAP Q1 item 13), so
+that the card never runs a plain stand-in for a kernel.  The sweep's
+stack/Fano Monte-Carlo leg does not use this chain (``ops/stack_mc.py``,
+``ops/fano_mc.py``).
 """
 
 from __future__ import annotations
@@ -20,11 +25,13 @@ from typing import Callable, Tuple
 
 import torch
 
-from convolutional_codes_tpu.models.codebook import Code
+from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.channels import awgn, bsc
 from convolutional_codes_tpu_torch.ops.demapper import hard_decide, hard_demap, soft_demap
 from convolutional_codes_tpu_torch.ops.encoder import encode
+from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_decode_hard, fano_decode_soft
 from convolutional_codes_tpu_torch.ops.mapper import map_symbols, map_symbols_m
+from convolutional_codes_tpu_torch.ops.stack import stack_decode_hard, stack_decode_soft
 from convolutional_codes_tpu_torch.ops.viterbi import viterbi_decode_hard, viterbi_decode_soft
 from convolutional_codes_tpu_torch.utils.bitops import popcount32
 
@@ -32,37 +39,41 @@ CHANNELS = ("awgn", "bsc")
 DEMAPPERS = ("soft", "hard")
 DECODERS = ("viterbi", "stack", "fano")
 
-#: Reference Fano decode budget in cycles per bit (fano-decoder.c:14).
-FANO_TIMEOUT = 10000
-
 StepFn = Callable[[torch.Generator, float], Tuple[torch.Tensor, torch.Tensor, int]]
 
 
-def check_decoder(decoder: str) -> None:
-    """Raise for the decoders that are not ported yet."""
+def _sequential_decoder(code: Code, decoder: str, soft: bool, timeout_per_bit: int):
     if decoder == "stack":
-        raise NotImplementedError("the stack decoder is not ported yet "
-                                  "(ROADMAP Q1 item 9)")
-    if decoder == "fano":
-        raise NotImplementedError("the Fano decoder is not ported yet "
-                                  "(ROADMAP Q1 item 10)")
+        return lambda x: (stack_decode_soft if soft else stack_decode_hard)(code, x)
+    fano = fano_decode_soft if soft else fano_decode_hard
+    return lambda x: fano(code, x, timeout_per_bit)
 
 
 def make_point_step(code: Code, channel: str, decoder: str,
                     demapper: str = "soft", frames: int = 1024,
-                    device="cuda") -> StepFn:
+                    timeout_per_bit: int = FANO_TIMEOUT, device="cuda") -> StepFn:
     """Build ``step(generator, param) -> (bit_errors, frame_errors, bits)``
     for one sweep point; ``param`` is the AWGN per-component sigma or the
-    BSC crossover probability."""
+    BSC crossover probability; ``timeout_per_bit`` is the Fano budget."""
     if channel not in CHANNELS:
         raise ValueError(f"channel must be one of {CHANNELS}, got {channel!r}")
     if decoder not in DECODERS:
         raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
     if demapper not in DEMAPPERS:
         raise ValueError(f"demapper must be one of {DEMAPPERS}, got {demapper!r}")
-    check_decoder(decoder)
     L, m = code.block_length, code.symlen_out
     device = torch.device(device)
+    if decoder != "viterbi" and device.type != "cpu":
+        raise NotImplementedError(
+            f"the {decoder} decoder on supplied symbols runs on the CPU only until "
+            "TPU kernels 9-10 are ported (ROADMAP Q1 item 13); the sweep's "
+            f"{decoder} Monte-Carlo leg runs on the card")
+    if decoder == "viterbi":
+        decode_soft = lambda x: viterbi_decode_soft(code, x)
+        decode_hard = lambda x: viterbi_decode_hard(code, x)[0]
+    else:
+        decode_soft = _sequential_decoder(code, decoder, True, timeout_per_bit)
+        decode_hard = _sequential_decoder(code, decoder, False, timeout_per_bit)
 
     def step(generator: torch.Generator, param):
         bits = torch.randint(0, 2, (frames, L), generator=generator,
@@ -71,9 +82,9 @@ def make_point_step(code: Code, channel: str, decoder: str,
         if channel == "awgn":
             rx = awgn(generator, map_symbols(code, syms), param)
             demap = soft_demap if demapper == "soft" else hard_demap
-            dec = viterbi_decode_soft(code, demap(m, rx))
+            dec = decode_soft(demap(m, rx))
         else:
-            dec, _metric = viterbi_decode_hard(code, bsc(generator, syms, param, m))
+            dec = decode_hard(bsc(generator, syms, param, m))
         errs = dec != bits
         return (errs.sum(dtype=torch.int64), errs.any(dim=-1).sum(dtype=torch.int64),
                 frames * L)

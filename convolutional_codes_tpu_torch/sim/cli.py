@@ -3,11 +3,15 @@ and flags):
 
     python -m convolutional_codes_tpu_torch.sim.cli awgn    --code 0 --decoder viterbi
     python -m convolutional_codes_tpu_torch.sim.cli bsc     --code 0 --decoder viterbi
+    python -m convolutional_codes_tpu_torch.sim.cli awgn    --code k9-r12 --decoder stack
+    python -m convolutional_codes_tpu_torch.sim.cli bsc     --code 0 --decoder fano
     python -m convolutional_codes_tpu_torch.sim.cli uncoded --code 0
 
 The sweep runs on the CUDA device; without one the CLI exits with an
 error, and ``--cpu`` selects the CPU explicitly.  ``--bits-scale`` shrinks
-the reference-sized tiers (8e8-bit base) for quick runs.
+the reference-sized tiers (8e8-bit base) for quick runs.  Stack and Fano
+points size their lanes from the tiers (``sim/sweep.seq_plan``), not from
+``--frames``; ``--timeout-per-bit`` sets the Fano budget.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import sys
 
 import torch
 
-from convolutional_codes_tpu.models.codebook import get_code
+from convolutional_codes_tpu_torch.models.codebook import get_code
 from convolutional_codes_tpu_torch.sim.sweep import SweepSpec, run_sweep
 from convolutional_codes_tpu_torch.utils import records as rec
 

@@ -10,9 +10,14 @@ Legs (as in the reference package's ``sim/sweep.py``):
     Monte-Carlo chain — the CUDA kernel on a CUDA device, its plain version
     on the CPU — with the reference's per-chunk seeds, so a CPU run gives
     the same counters as the reference's ``interpret=True`` kernel;
+  * sequential: every stack/Fano point runs the sequential Monte-Carlo
+    kernels (``ops/stack_mc.py``, ``ops/fano_mc.py``; their plain versions
+    on the CPU) with the reference's frame addressing (:func:`seq_plan`,
+    :func:`sequential_point`), so BSC counters equal the reference's TPU
+    records; the reference's VMEM gates on T*M do not apply here;
   * modular: other Viterbi configs run the step chain of ``sim/chain.py``;
   * uncoded: the nearest-point baseline.
-Stack/Fano decoders, meshes and traces are not ported yet and raise.
+Meshes and traces are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,16 +26,18 @@ import dataclasses
 import hashlib
 import json
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from convolutional_codes_tpu.models.codebook import Code, get_code
+from convolutional_codes_tpu_torch.models.codebook import Code, get_code
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
+from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano
+from convolutional_codes_tpu_torch.ops.stack_mc import mc_stack
 from convolutional_codes_tpu_torch.parallel.montecarlo import (
     fused_mc_accumulate, fused_mc_eligible, sharded_accumulate)
-from convolutional_codes_tpu_torch.sim.chain import (
-    FANO_TIMEOUT, check_decoder, make_point_step, make_uncoded_step)
+from convolutional_codes_tpu_torch.sim.chain import make_point_step, make_uncoded_step
 
 #: Default Eb/N0 grid in dB (AWGN-channel/main.c:150-152).
 AWGN_SNR_GRID = (0.0, 2.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0)
@@ -73,7 +80,7 @@ class SweepSpec:
 
     code: object = 0                      # registry key or Code
     channel: str = "awgn"                 # awgn | bsc | uncoded
-    decoder: str = "viterbi"              # viterbi (stack | fano not ported)
+    decoder: str = "viterbi"              # viterbi | stack | fano
     demapper: str = "soft"                # soft | hard
     points: Optional[Sequence[float]] = None   # Eb/N0 dB or crossover probs
     frames_per_step: int = 4096
@@ -143,8 +150,60 @@ def _spec_fingerprint(spec: SweepSpec, code: Code) -> str:
 
 
 def _chunk_seed(seed: int, point_idx: int, chunk_idx: int) -> int:
-    """Per-(point, chunk) seed (reference sim/sweep.py:607)."""
+    """Per-(point, chunk) seed (reference sim/sweep.py:607); chunk 0 is also
+    the sequential leg's point seed (:569)."""
     return (seed * 1000003 + point_idx * 7919 + chunk_idx) & 0x7FFFFFFF
+
+
+def target_bits(spec: SweepSpec, point: float) -> int:
+    """Info bits a point asks for: ``bits_per_point`` or the channel's tier."""
+    if spec.bits_per_point:
+        return int(spec.bits_per_point)
+    tier = bsc_tier_bits if spec.channel == "bsc" else awgn_tier_bits
+    return int(tier(point, spec.base_bits))
+
+
+#: the sequential leg's warm slice runs with the point seed xored with this
+#: (reference sim/sweep.py:579)
+WARM_SEED_XOR = 0x2A5A5A5A
+
+
+def seq_plan(target: int, frame_bits: int) -> Tuple[int, int]:
+    """(lanes, frames per lane) of a sequential Monte-Carlo point
+    (reference sim/sweep.py:424-431): 8192 lanes, or 1024 below 8192
+    frames' worth of bits."""
+    lanes = 8192 if target >= 8192 * frame_bits else 1024
+    return lanes, max(1, -(-target // (lanes * frame_bits)))
+
+
+def sequential_point(spec: SweepSpec, code: Code, point_idx: int, point: float,
+                     param: float, device) -> Tuple[int, int, int, int, float]:
+    """One stack/Fano point of the sweep: a cold slice of one frame per lane
+    with the point seed, then a warm slice of ``fpl - 1`` frames per lane
+    with the seed xored by :data:`WARM_SEED_XOR` (reference
+    sim/sweep.py:558-585).  Frame ``k`` of lane ``g`` is ``gid = g * fpl +
+    k`` within each slice.  Returns (bit_errors, frame_errors, bits,
+    warm_bits, warm_wall_s)."""
+    lanes, fpl = seq_plan(target_bits(spec, point), code.block_length)
+    seed = _chunk_seed(spec.seed, point_idx, 0)
+    kw = dict(channel=spec.channel, demapper=spec.demapper, device=device)
+    if spec.decoder == "fano":
+        mc = mc_fano
+        kw["timeout_per_bit"] = spec.timeout_per_bit
+    else:
+        mc = mc_stack
+    slices = [(1, seed)] + ([(fpl - 1, seed ^ WARM_SEED_XOR)] if fpl > 1 else [])
+    be = fe = nb = warm_bits = 0
+    warm_wall = 0.0
+    for k, (n, s) in enumerate(slices):
+        t0 = time.time()
+        out = mc(code, lanes, n, s, param, **kw)
+        be += int(out[0].sum())      # host ints: the device is done
+        fe += int(out[1].sum())
+        nb += lanes * n * code.block_length
+        if k:                        # the cold slice pays the warm-up
+            warm_bits, warm_wall = lanes * n * code.block_length, time.time() - t0
+    return be, fe, nb, warm_bits, warm_wall
 
 
 def _load_checkpoint(path: str, spec_fp: str) -> dict:
@@ -176,20 +235,14 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
     uncoded = spec.channel == "uncoded"
     frames = spec.frames_per_step
 
+    sequential = not uncoded and spec.decoder in ("stack", "fano")
     if uncoded:
         step = make_uncoded_step(code.symlen_out, frames, device)
         frame_bits = code.symlen_out
-        tier = lambda p: awgn_tier_bits(p, spec.base_bits)
         to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=code.symlen_out))
     else:
-        check_decoder(spec.decoder)
         frame_bits = code.block_length
-        if spec.channel == "awgn":
-            tier = lambda p: awgn_tier_bits(p, spec.base_bits)
-            to_param = lambda p: float(awgn_sigma(p))
-        else:
-            tier = lambda p: bsc_tier_bits(p, spec.base_bits)
-            to_param = float
+        to_param = (lambda p: float(awgn_sigma(p))) if spec.channel == "awgn" else float
 
     spec_fp = _spec_fingerprint(spec, code)
     done_points = _load_checkpoint(checkpoint_path, spec_fp) if checkpoint_path else {}
@@ -200,9 +253,9 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
         eff_frames = max(1024, -(-frames // 1024) * 1024)
     else:
         eff_frames = frames
-        if not uncoded:
+        if not uncoded and not sequential:
             step = make_point_step(code, spec.channel, spec.decoder, spec.demapper,
-                                   frames, device)
+                                   frames, device=device)
     bits_per_call = eff_frames * frame_bits
     # chunk the accumulation so int32 per-lane counters cannot overflow
     chunk = max(1, (1 << 30) // max(1, bits_per_call))
@@ -238,8 +291,12 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
             records_by_idx[i] = PointRecord(**done_points[point])
             continue
         param = to_param(point)
-        nsteps = max(1, -(-int(spec.bits_per_point or tier(point)) // bits_per_call))
         t0 = tc = time.time()
+        if sequential:
+            be, fe, nb, wb, ww = sequential_point(spec, code, i, point, param, device)
+            finish_point(i, point, param, be, fe, nb, time.time() - t0, wb, ww)
+            continue
+        nsteps = max(1, -(-target_bits(spec, point) // bits_per_call))
         be = fe = nb = wb = 0
         ww = 0.0
         left, ci = nsteps, 0

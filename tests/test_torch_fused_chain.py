@@ -16,8 +16,9 @@ import torch
 
 import jax.numpy as jnp
 
-from convolutional_codes_tpu.models.codebook import get_code
+from convolutional_codes_tpu.models.codebook import get_code as jax_code
 from convolutional_codes_tpu.ops import fused_chain as jfc
+from convolutional_codes_tpu_torch.models.codebook import get_code
 from convolutional_codes_tpu_torch.ops import fused_chain as fc
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 
@@ -69,7 +70,7 @@ def test_plain_chain_equals_jax_interpret_bsc():
     code = get_code(0)
     kw = dict(batch=1024, nsteps=2, seed=123, param=0.03, channel="bsc",
               block_lanes=1024)
-    e_j, f_j = jfc.mc_chain_viterbi(code, interpret=True, **kw)
+    e_j, f_j = jfc.mc_chain_viterbi(jax_code(0), interpret=True, **kw)
     e_t, f_t = fc.mc_chain_viterbi(code, device="cpu", **kw)
     assert np.array_equal(e_t.numpy(), np.asarray(e_j))
     assert np.array_equal(f_t.numpy(), np.asarray(f_j))

@@ -14,13 +14,14 @@ import torch
 import jax.numpy as jnp
 
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
+from convolutional_codes_tpu.models.codebook import get_code as jax_code
 from convolutional_codes_tpu.models.constellations import get_constellation, min_sq_distance
 from convolutional_codes_tpu.models.trellis import build_trellis
 from convolutional_codes_tpu.ops import channels as jch
 from convolutional_codes_tpu.ops import demapper as jdm
 from convolutional_codes_tpu.ops import encoder as jenc
 from convolutional_codes_tpu.ops import mapper as jmap
+from convolutional_codes_tpu_torch.models.codebook import get_code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops import channels, demapper, encoder, mapper
 from convolutional_codes_tpu_torch.utils.bitops import parity32, popcount32
@@ -38,7 +39,7 @@ def ulps(a, b):
 def test_code_tables_match_numpy_trellis(key):
     code = get_code(key)
     t = code_tables(code, "cpu")
-    tr = build_trellis(code)
+    tr = build_trellis(jax_code(key))
     assert np.array_equal(t.prev_state.numpy(), tr.prev_state)
     assert np.array_equal(t.esym_prev.numpy(), tr.esym_prev)
     assert np.array_equal(t.esym_prev_np, tr.esym_prev)
@@ -68,7 +69,7 @@ def test_encoder_matches_jax(key):
     code = get_code(key)
     bits = np.random.default_rng(7).integers(0, 2, (64, code.block_length))
     ours = encoder.encode(code, torch.as_tensor(bits)).numpy()
-    assert np.array_equal(ours, np.asarray(jenc.encode(code, jnp.asarray(bits))))
+    assert np.array_equal(ours, np.asarray(jenc.encode(jax_code(key), jnp.asarray(bits))))
 
 
 @pytest.mark.parametrize("terminate", [True, False])
@@ -77,10 +78,10 @@ def test_encode_stream_and_tb_match_jax(terminate):
     bits = np.random.default_rng(8).integers(0, 2, (16, 97))
     ours = encoder.encode_stream(code, torch.as_tensor(bits), terminate).numpy()
     assert np.array_equal(
-        ours, np.asarray(jenc.encode_stream(code, jnp.asarray(bits), terminate)))
+        ours, np.asarray(jenc.encode_stream(jax_code(1), jnp.asarray(bits), terminate)))
     ours_tb = encoder.encode_tb(code, torch.as_tensor(bits.T), terminate).numpy()
     assert np.array_equal(
-        ours_tb, np.asarray(jenc.encode_tb(code, jnp.asarray(bits.T), terminate)))
+        ours_tb, np.asarray(jenc.encode_tb(jax_code(1), jnp.asarray(bits.T), terminate)))
 
 
 def test_encode_rejects_wrong_length():

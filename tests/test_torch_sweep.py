@@ -1,9 +1,9 @@
 """PyTorch port, sweep and CLI: counters against the JAX package's fused
-accumulation, BER against the published curves, checkpoint
-interchangeability and the CLI's device handling.
+accumulation and its sequential decoders, BER against the published
+curves, checkpoint interchangeability and the CLI's device handling.
 
-Tolerances: BSC counters exactly (the same hash stream and chunk seeds as
-the JAX interpret-mode kernel); BER within the clustered |z| < 4.5 of
+Tolerances: BSC counters exactly (the same hash streams, chunk seeds and
+frame addressing as the JAX kernels); BER within the clustered |z| < 4.5 of
 tests/test_ber_statistical.py.
 """
 
@@ -16,14 +16,19 @@ import numpy as np
 import pytest
 import torch
 
-from convolutional_codes_tpu.models.codebook import get_code
+from convolutional_codes_tpu.models.codebook import get_code as jax_code
+from convolutional_codes_tpu.ops import fano as jfano
+from convolutional_codes_tpu.ops import mc_datagen as jmcdg
+from convolutional_codes_tpu.ops import stack as jstack
 from convolutional_codes_tpu.parallel.montecarlo import fused_mc_accumulate as jax_fused
 from convolutional_codes_tpu.sim import sweep as jsweep
+from convolutional_codes_tpu_torch.models.codebook import get_code
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 from convolutional_codes_tpu_torch.parallel import montecarlo
 from convolutional_codes_tpu_torch.sim import cli
 from convolutional_codes_tpu_torch.sim.chain import make_point_step
-from convolutional_codes_tpu_torch.sim.sweep import SweepSpec, _spec_fingerprint, run_sweep
+from convolutional_codes_tpu_torch.sim.sweep import (
+    SweepSpec, _spec_fingerprint, run_sweep, seq_plan)
 from convolutional_codes_tpu_torch.utils.records import octave_rows, read_jsonl
 
 from test_ber_statistical import check
@@ -37,7 +42,7 @@ def test_bsc_sweep_counters_equal_jax_fused():
     spec = SweepSpec(code=0, channel="bsc", points=[0.02, 0.05],
                      frames_per_step=1024, bits_per_point=3 * 1024 * 40, seed=5)
     recs = run_sweep(spec, verbose=False, device="cpu")
-    code = get_code(0)
+    code = jax_code(0)
     for i, (rec, p) in enumerate(zip(recs, spec.points)):
         # the sweep's partition of 3 steps: a cold chunk of 1, then 2
         be = fe = nb = 0
@@ -98,20 +103,56 @@ def test_uncoded_sweep_closed_form():
 
 
 def test_unported_legs_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_sweep(SweepSpec(decoder="stack", points=[4.0]), verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_sweep(SweepSpec(decoder="fano", points=[4.0]), verbose=False, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         run_sweep(SweepSpec(points=[4.0]), mesh=object(), verbose=False, device="cpu")
+    for decoder in ("stack", "fano"):     # supplied-symbol decode on the card
+        with pytest.raises(NotImplementedError, match="item 13"):
+            make_point_step(get_code(0), "awgn", decoder, device="cuda")
+
+
+@pytest.mark.parametrize("decoder,points,tpb", [("stack", [0.03, 0.06], 10000),
+                                                ("fano", [0.02, 0.04], 40)])
+def test_sequential_sweep_counters_equal_jax(decoder, points, tpb):
+    """Two BSC points at 1024 lanes and 2 frames per lane: the cold slice
+    (point seed) and the warm slice (seed ^ 0x2A5A5A5A) address frames as
+    the reference's sequential leg does, so the counters equal the JAX XLA
+    decoders on the JAX package's own frames for those seeds and gids."""
+    spec = SweepSpec(code=0, channel="bsc", decoder=decoder, points=points,
+                     bits_per_point=2 * 1024 * 40, seed=21, timeout_per_bit=tpb)
+    recs = run_sweep(spec, verbose=False, device="cpu")
+    jc = jax_code(0)
+    dec = ((lambda x: jstack.stack_decode_hard(jc, x)) if decoder == "stack"
+           else (lambda x: jfano.fano_decode_hard(jc, x, tpb)))
+    for i, (rec, p) in enumerate(zip(recs, points)):
+        seed = (spec.seed * 1000003 + i * 7919) & 0x7FFFFFFF
+        be = fe = 0
+        for s in (seed, seed ^ 0x2A5A5A5A):        # 1024 lanes x 1 frame each
+            bits, syms = jmcdg.frames_host(jc, np.arange(1024), s, p, "bsc")
+            err = (np.asarray(dec(syms)) != bits[:, :40]).sum(axis=1)
+            be, fe = be + int(err.sum()), fe + int((err > 0).sum())
+        assert (rec.bit_errors, rec.frame_errors, rec.bits) == (be, fe, 2 * 1024 * 40)
+        assert rec.warm_bits == 1024 * 40 and rec.decoder == decoder and be > 0
+
+
+def test_seq_plan_matches_reference():
+    assert seq_plan(8e8, 40) == (8192, 2442)
+    assert seq_plan(8 * 10 ** 5, 40) == (8192, 3)
+    assert seq_plan(81920, 40) == (1024, 2)
+    assert seq_plan(100, 40) == (1024, 1)
+
+
+def test_stack_fingerprint_equals_jax():
+    kw = dict(code="k9-r12", channel="awgn", decoder="stack", points=[4.0],
+              base_bits=8e7, seed=1234)
+    assert _spec_fingerprint(SweepSpec(**kw), get_code("k9-r12")) == \
+        jsweep._spec_fingerprint(jsweep.SweepSpec(**kw), jax_code("k9-r12"))
 
 
 def test_fingerprint_equals_jax_and_jax_checkpoint_resumes(tmp_path):
     kw = dict(code=0, channel="bsc", points=[0.05], frames_per_step=1024,
               bits_per_point=40960, seed=17)
-    code = get_code(0)
-    fp = _spec_fingerprint(SweepSpec(**kw), code)
-    assert fp == jsweep._spec_fingerprint(jsweep.SweepSpec(**kw), code)
+    fp = _spec_fingerprint(SweepSpec(**kw), get_code(0))
+    assert fp == jsweep._spec_fingerprint(jsweep.SweepSpec(**kw), jax_code(0))
     stored = dict(code="k3-r12", channel="bsc", decoder="viterbi", demapper="soft",
                   point=0.05, param=0.05, bits=40960, bit_errors=12345,
                   frame_errors=77, frames=1024, ber=12345 / 40960, fer=77 / 1024,

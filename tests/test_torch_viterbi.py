@@ -11,9 +11,10 @@ import torch
 import jax.numpy as jnp
 
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
+from convolutional_codes_tpu.models.codebook import get_code as jax_code
 from convolutional_codes_tpu.models.trellis import build_trellis
 from convolutional_codes_tpu.ops import viterbi as jv
+from convolutional_codes_tpu_torch.models.codebook import get_code
 from convolutional_codes_tpu_torch.ops import viterbi as tv
 from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
 
@@ -46,24 +47,24 @@ def _inputs(code, hard, B=96, seed=0):
     T, M = code.num_block_symbols, code.points_per_symbol
     if hard:   # Hamming metrics of random received symbols: ties everywhere
         rx = rng.integers(0, M, (B, T))
-        return np.array(jv.hard_branch_metrics(code, jnp.asarray(rx)))
+        return np.array(jv.hard_branch_metrics(jax_code(code.name), jnp.asarray(rx)))
     return rng.uniform(0.0, 8.0, (B, T, M)).astype(np.float32)
 
 
 @pytest.mark.parametrize("key", ["k3-r12", "nasa-k7", "k9-r12"])
 @pytest.mark.parametrize("hard", [False, True])
 def test_acs_traceback_decode_match_jax_xla(key, hard):
-    code = get_code(key)
+    code, trellis = get_code(key), build_trellis(jax_code(key))
     bm = _inputs(code, hard)
     B = bm.shape[0]
-    init_j = jv.initial_metrics(build_trellis(code), B, hard)
-    fm_j, dec_j = jv.acs_forward(build_trellis(code), jnp.asarray(bm), hard, init_j)
+    init_j = jv.initial_metrics(trellis, B, hard)
+    fm_j, dec_j = jv.acs_forward(trellis, jnp.asarray(bm), hard, init_j)
     fm_t, dec_t = tv.acs_forward(code, torch.as_tensor(bm), hard,
                                  tv.initial_metrics(code, B, hard))
     assert np.array_equal(fm_t.numpy(), np.asarray(fm_j))
     assert dec_t.shape == (code.num_block_symbols, (code.num_states + 31) // 32, B)
     assert np.array_equal(dec_t.numpy(), np.asarray(dec_j))
-    bits_j, metric_j = jv._decode(build_trellis(code), jnp.asarray(bm), hard, backend="xla")
+    bits_j, metric_j = jv._decode(trellis, jnp.asarray(bm), hard, backend="xla")
     bits_t, metric_t = tv._decode(code, torch.as_tensor(bm), hard)
     assert np.array_equal(bits_t.numpy(), np.asarray(bits_j))
     assert np.array_equal(metric_t.numpy(), np.asarray(metric_j))
@@ -71,13 +72,13 @@ def test_acs_traceback_decode_match_jax_xla(key, hard):
 
 def test_traceback_from_any_start_state_matches_jax():
     """Traceback from arbitrary (not argmin) start states, S=64, nwords=2."""
-    code = get_code("nasa-k7")
+    code, trellis = get_code("nasa-k7"), build_trellis(jax_code("nasa-k7"))
     bm = _inputs(code, False, seed=3)
     B = bm.shape[0]
-    _, dec = jv.acs_forward(build_trellis(code), jnp.asarray(bm), False,
-                            jv.initial_metrics(build_trellis(code), B, False))
+    _, dec = jv.acs_forward(trellis, jnp.asarray(bm), False,
+                            jv.initial_metrics(trellis, B, False))
     start = np.random.default_rng(4).integers(0, code.num_states, B)
-    ref = jv.traceback_from(build_trellis(code), dec, jnp.asarray(start))
+    ref = jv.traceback_from(trellis, dec, jnp.asarray(start))
     ours = tv.traceback_from(code, torch.as_tensor(np.array(dec)), torch.as_tensor(start))
     assert np.array_equal(ours.numpy(), np.asarray(ref))
 
