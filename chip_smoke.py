@@ -15,18 +15,31 @@ Phases, each of which raises on failure:
      Fano Monte-Carlo kernels on every stack/Fano golden (bit-exact, through
      their supplied-frames entry) and per lane against their plain versions
      (BSC exact; AWGN exact on the kernels' own frames, and the lanes that
-     differ on the plain version's frames counted);
+     differ on the plain version's frames counted); the streaming ACS and
+     traceback wrappers against their plain versions (bit-exact, soft and
+     tie-heavy hard, a two-segment traceback through the carry); the
+     long-frame Monte-Carlo kernel against its plain version and against a
+     decode of the same stream by the streaming kernels (BSC exact, AWGN at
+     most 1% of lanes different);
   4. the main paths, each with every launch counter reset before and read
      after: (a) the CLI's code-0 AWGN and BSC Viterbi sweeps (fused kernel)
      and the modular chain (ACS + traceback kernels); (b) the CLI's code-0
      AWGN stack sweep and the sweep's stack point function at the recorded
-     BSC spec; (c) the same for Fano.  Every point with a published BER
-     must pass the clustered z-check (|z| < 4.5), and every BSC stack/Fano
-     point must equal its committed record in results/ exactly;
+     BSC spec; (c) the same for Fano; (d) long frames: BASELINE configs 0
+     and 2 through ``streaming_mc_accumulate`` and the exact decode of
+     supplied K=7 frames through ``long_frame_decode_stream``.  Every point
+     with a published BER must pass the clustered z-check (|z| < 4.5),
+     every BSC stack/Fano point must equal its committed record in
+     results/ exactly, and the long-frame runs must beat their channels;
   5. throughput at the headline shape (code 0, 8 dB, 2^20 lanes, 16
      in-kernel steps), the sequential kernels at full width (8192 lanes,
-     timeout 10000 per bit), and each kernel's time beside its plain
-     version's and its bound.
+     timeout 10000 per bit), the long-frame kernels at configs 0 and 2 and
+     at the real-data decode shapes, and each kernel's time beside its
+     plain version's and its bound.  The long-frame kernels are held
+     against the plain versions that are timed there, at the main path's
+     shapes: the Monte-Carlo kernel at configs 0 (exact) and 2 (at most 1%
+     of lanes different), the streaming wrappers bit for bit at both
+     decode shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
@@ -94,6 +107,17 @@ def sm_clock_hz() -> float:
                           "--format=csv,noheader,nounits"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return float(out.strip().splitlines()[0]) * 1e6
+
+
+def cuda_call(fn):
+    """``(fn(), device milliseconds of that one call)`` (CUDA events)."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -302,6 +326,105 @@ def check_sequential_kernels(torch, dev, stats):
                   f"bit errors {int(k[0].sum())} vs {int(r[0].sum())}")
 
 
+LONGFRAME_CASES = [  # tests/test_fused_longframe.py:41-51: (code, channel, point, demapper)
+    ("k3-75", "bsc", 0.0125, "soft"), ("k3-75", "awgn", 4.0, "soft"),
+    ("k3-75", "awgn", 4.0, "hard"), ("nasa-k7", "awgn", 3.0, "soft"),
+    ("k9-r12", "awgn", 1.5, "soft")]
+#: the real-data decode shapes of bench.py:394-398, (frames B, symbols T)
+LONGFRAME_DECODE_SHAPES = ((128, 65536), (1024, 16384))
+
+
+def payload_errors(torch, code, stream_bits, dists, W, hard):
+    """Per-lane payload bit errors of one whole-stream decode by kernels 4-5
+    from zero start metrics (tests/test_fused_longframe.py's
+    monolithic_counts): ``dists`` [B, span, M], payload rows W .. span-W."""
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.utils.bitops import first_argmin
+
+    B, span = stream_bits.shape
+    d_tmb = dists.permute(1, 2, 0).contiguous()
+    fm, dec = lc.stream_acs_cuda(code, d_tmb, torch.zeros((code.num_states, B),
+                                                         device=dists.device), hard)
+    out, _ = lc.stream_traceback_cuda(code, dec, first_argmin(fm, dim=0).to(torch.int32))
+    pay = slice(W, span - W)
+    return (out.T[:, pay] != stream_bits[:, pay]).sum(1, dtype=torch.int32)
+
+
+def check_longframe_kernels(torch, dev, stats):
+    """Kernels 4-6: the streaming ACS and traceback bit-exact against their
+    plain versions; the long-frame MC kernel per lane against its plain
+    version and against a whole-stream decode of the same stream by
+    kernels 4-5.  (Phase 5 holds all three against their plain versions
+    at the main path's shapes.)"""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.viterbi import HARD_METRIC_SAT
+    from convolutional_codes_tpu_torch.utils.bitops import first_argmin
+
+    g = torch.Generator(device=dev).manual_seed(2025)
+    B = 128
+    for name in ("k3-75", "nasa-k7", "k9-r12"):
+        code = get_code(name)
+        M, S = code.points_per_symbol, code.num_states
+        # soft from random start metrics at T = 8192; tie-heavy hard integer
+        # metrics from the pinned start at T = 7777 (not a power of two)
+        for hard, T in ((False, 8192), (True, 7777)):
+            if hard:
+                d = torch.randint(0, code.symlen_out + 1, (T, M, B), generator=g,
+                                  device=dev).to(torch.float32)
+                init = torch.full((S, B), float(HARD_METRIC_SAT), device=dev)
+                init[0] = 0.0
+            else:
+                d = torch.rand((T, M, B), generator=g, device=dev) * 8.0
+                init = torch.rand((S, B), generator=g, device=dev) * 8.0
+            fm, dec = lc.stream_acs_cuda(code, d, init, hard)
+            fm_r, dec_r = lc.stream_acs_ref(code, d, init, hard)
+            err = float((fm - fm_r).abs().max())
+            require(err == 0.0 and torch.equal(dec, dec_r),
+                    f"stream ACS kernel vs plain {name} hard={hard}: max err {err}, "
+                    f"{int((dec != dec_r).sum())} decision words differ")
+            start = first_argmin(fm, dim=0).to(torch.int32)
+            bits, carry = lc.stream_traceback_cuda(code, dec, start)
+            bits_r, carry_r = lc.stream_traceback_ref(code, dec, start)
+            require(torch.equal(bits, bits_r) and torch.equal(carry, carry_r),
+                    f"stream traceback kernel vs plain {name} hard={hard}")
+            hi, mid = lc.stream_traceback_cuda(code, dec[T // 2:].contiguous(), start)
+            lo, carry0 = lc.stream_traceback_cuda(code, dec[:T // 2].contiguous(), mid)
+            require(torch.equal(torch.cat([lo, hi]), bits) and torch.equal(carry0, carry),
+                    f"two-segment stream traceback {name} hard={hard}")
+            stats["stream_acs"] = max(stats["stream_acs"], err)
+            stats["stream_traceback"] = max(stats["stream_traceback"],
+                                            float((bits - bits_r).abs().max()))
+        print(f"stream kernels vs plain {name} (S={S}, B={B}): soft T=8192 and hard T=7777 "
+              "bit-exact, two-segment traceback through the carry equal (tolerance 0)")
+
+    lanes, W, Wn, nsteps = 1024, 128, 256, 3
+    for ck, channel, point, dem in LONGFRAME_CASES:
+        code = get_code(ck)
+        param = float(awgn_sigma(point)) if channel == "awgn" else point
+        kw = dict(channel=channel, demapper=dem, window=Wn, warmup=W)
+        be, we = fl.mc_longframe_viterbi(code, lanes, nsteps, 7, param, device=dev, **kw)
+        be_r, we_r = fl.mc_longframe_viterbi_ref(code, lanes, nsteps, 7, param, device=dev,
+                                                 **kw)
+        diff = int(((be != be_r) | (we != we_r)).sum())
+        stats["mc_longframe"] = max(stats["mc_longframe"], float(
+            torch.maximum((be - be_r).abs(), (we - we_r).abs()).max()))
+        bits, dists = fl.stream_segment_host(code, torch.arange(lanes, device=dev), 7, param,
+                                             channel, -W, 2 * W + nsteps * Wn, dem)
+        mono = payload_errors(torch, code, bits, dists, W, channel == "bsc")
+        mono_diff = int((be != mono).sum())
+        tag = f"long-frame kernel {code.name} {channel}/{dem}"
+        print(f"{tag}: {diff}/{lanes} lanes differ from the plain version, "
+              f"{mono_diff}/{lanes} from the whole-stream decode by kernels 4-5; "
+              f"bit errors {int(be.sum())} (plain {int(be_r.sum())}, whole-stream "
+              f"{int(mono.sum())})")
+        limit = 0 if channel == "bsc" else lanes // 100
+        require(diff <= limit, f"{tag} vs plain: {diff} lanes differ")
+        require(mono_diff <= limit, f"{tag} vs whole-stream decode: {mono_diff} lanes differ")
+
+
 def run_main_path(torch, dev, gold, tmp):
     """The CLI's two code-0 sweeps and the modular chain; returns the
     z-checked rows."""
@@ -374,6 +497,63 @@ def run_sequential_path(torch, dev, tmp, decoder: str, scale: str, grid_idx):
               f"wall {wall:.2f} s, warm {wb / ww if ww else float('nan'):.4e} bits/s")
         require(same, f"bsc {decoder} point {point}: counters differ from results/")
     return results
+
+
+#: BASELINE configs 0 and 2 at bench.py:384-389's shapes:
+#: (code, channel, point, lanes, windows); 1920-symbol windows, 128-symbol halos
+LONGFRAME_CONFIGS = (("k3-75", "bsc", 0.0125, 131072, 4), ("nasa-k7", "awgn", 6.0, 65536, 2))
+
+
+def awgn_frames(torch, code, B, T, snr_db, gen):
+    """Terminated frames of T symbols through the port's encoder, mapper,
+    AWGN channel and soft demapper on the generator's device: (info bits
+    [B, T-K+1], distances [B, T, M])."""
+    from convolutional_codes_tpu_torch.ops.channels import awgn, awgn_sigma
+    from convolutional_codes_tpu_torch.ops.demapper import soft_demap
+    from convolutional_codes_tpu_torch.ops.encoder import encode_stream
+    from convolutional_codes_tpu_torch.ops.mapper import map_symbols
+
+    bits = torch.randint(0, 2, (B, T - code.constraint_length + 1), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+    rx = awgn(gen, map_symbols(code, encode_stream(code, bits)), awgn_sigma(snr_db))
+    return bits, soft_demap(code.symlen_out, rx)
+
+
+def run_longframe_path(torch, dev):
+    """BASELINE configs 0 and 2 through ``streaming_mc_accumulate`` (kernel
+    6), then the exact decode of supplied K=7 AWGN 6 dB frames through
+    ``long_frame_decode_stream`` (kernels 4-5) at both real-data shapes."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.parallel.streaming import (
+        long_frame_decode_stream, streaming_mc_accumulate)
+
+    for n, (ck, channel, point, lanes, windows) in enumerate(LONGFRAME_CONFIGS):
+        code = get_code(ck)
+        param = float(awgn_sigma(point)) if channel == "awgn" else point
+        be, we, nb = streaming_mc_accumulate(code, lanes, windows, 4321 + n, param, channel,
+                                             device=dev)
+        ber = int(be.sum()) / nb
+        print(f"  config {'02'[n]}: {code.name} {channel} {point:g}: {lanes} lanes x {windows} "
+              f"windows, bits={nb} bit_errors={int(be.sum())} BER={ber:.4e} "
+              f"windows with errors {int(we.sum())}")
+        # the channel's raw error rate: p, or uncoded QPSK at 6 dB (2.4e-3)
+        raw = point if channel == "bsc" else 2.4e-3
+        require(nb == lanes * windows * 1920 and ber < raw / 10,
+                f"long-frame config {ck}: BER {ber:.4e}")
+
+    code = get_code("nasa-k7")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    for B, T in LONGFRAME_DECODE_SHAPES:
+        bits, d = awgn_frames(torch, code, B, T, 6.0, gen)
+        out = long_frame_decode_stream(code, d)
+        L = bits.shape[1]
+        wrong = out[:, :L] != bits
+        bad = int(wrong.any(1).sum())
+        print(f"  decode supplied frames nasa-k7 AWGN 6 dB [{B}, {T}, 4]: bits={B * L} "
+              f"bit_errors={int(wrong.sum())} BER={int(wrong.sum()) / (B * L):.4e} "
+              f"frames with errors {bad}/{B}")
+        require(bad <= B // 20, f"decode of [{B}, {T}] frames: {bad} frames with errors")
 
 
 def check_points(results, gold, row="ber_coded_a"):
@@ -529,6 +709,120 @@ def measure_sequential(torch, dev, card, clock):
     return times, plain, bound
 
 
+def longframe_instr_per_symbol(code, channel: str) -> int:
+    """Estimated lane-instructions per window symbol of kernel 6 (not
+    measured: ncu does not run on the card's machine): ~8 per state for
+    the ACS, ~20 per coordinate hash (1 + symlen on BSC, 3 on AWGN), ~80
+    for log/sqrt/sin/cos and ~4 per point for the distances on AWGN, and
+    ~30 for the encoder, the decision stores and the traceback."""
+    if channel == "bsc":
+        stage = 20 * (1 + code.symlen_out) + 3 * code.points_per_symbol
+    else:
+        stage = 60 + 80 + 4 * code.points_per_symbol
+    return 8 * code.num_states + stage + 30
+
+
+def measure_longframe(torch, dev, card, clock, stats):
+    """Kernel 6 at BASELINE configs 0 and 2 (warm calls, fresh seeds, walls
+    of about 2 s), kernels 4-5 at both real-data decode shapes, each beside
+    its bound and its plain version, whose outputs on the same inputs the
+    kernels must match: kernel 6 exactly on BSC (at most 1% of lanes
+    different on AWGN), kernels 4-5 bit for bit."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fused_longframe import (
+        mc_longframe_viterbi, mc_longframe_viterbi_ref)
+    from convolutional_codes_tpu_torch.ops.viterbi import BIG_METRIC
+    from convolutional_codes_tpu_torch.utils.bitops import first_argmin
+
+    times, plain, bound = {}, {}, {}
+    slots = SMS * LANE_SLOTS_PER_SM * clock
+    window, Tw = 1920, 1920 + 2 * 128
+    for n, (ck, channel, point, lanes, windows) in enumerate(LONGFRAME_CONFIGS):
+        code = get_code(ck)
+        param = float(awgn_sigma(point)) if channel == "awgn" else point
+        kw = dict(channel=channel, device=dev)
+        run = lambda seed: mc_longframe_viterbi(code, lanes, windows, seed, param, **kw)
+        run(1)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run(2)
+        torch.cuda.synchronize()
+        calls = max(2, int(2.0 / max(time.time() - t0, 1e-4)))
+        t0 = time.time()
+        outs = [run(100 + i) for i in range(calls)]
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        bits = lanes * windows * window * calls
+        ms = dt * 1e3 / calls
+        ops_ms = (lanes * windows * Tw * longframe_instr_per_symbol(code, channel)
+                  / slots * 1e3)
+        nw = (code.num_states + 31) // 32
+        bytes_ms = lanes * windows * Tw * nw * 4 * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"long-frame config {'02'[n]} [{card}]: kernel 6, {code.name} {channel} "
+              f"{point:g}, {lanes} lanes x {windows} windows x {calls} calls: "
+              f"{bits / dt:.6e} info bits/s, BER {sum(int(o[0].sum()) for o in outs) / bits:.6e}, "
+              f"{ms:.3f} ms per launch; bound {max(ops_ms, bytes_ms):.3f} ms (operations "
+              f"{ops_ms:.3f} ms at ~{longframe_instr_per_symbol(code, channel)} instr./symbol "
+              f"estimated, decision bytes {bytes_ms:.3f} ms)")
+        (be_r, we_r), plain_ms = cuda_call(
+            lambda: mc_longframe_viterbi_ref(code, lanes, windows, 100, param, **kw))
+        be, we = outs[0]
+        diff = int(((be != be_r) | (we != we_r)).sum())
+        stats["mc_longframe"] = max(stats["mc_longframe"], float(
+            torch.maximum((be - be_r).abs(), (we - we_r).abs()).max()))
+        print(f"plain long-frame chain [{card}]: same shape and seed, one call {plain_ms:.1f} ms; "
+              f"{diff}/{lanes} lanes differ from the kernel, bit errors {int(be.sum())} "
+              f"(plain {int(be_r.sum())})")
+        require(diff <= (0 if channel == "bsc" else lanes // 100),
+                f"long-frame kernel vs plain at config {'02'[n]}: {diff} lanes differ")
+        if n == 0:
+            times["mc_longframe"], plain["mc_longframe"] = ms, plain_ms
+            bound["mc_longframe"] = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                                     else (bytes_ms, "bytes"))
+        del outs, be_r, we_r
+
+    code = get_code("nasa-k7")
+    S, M, nw = code.num_states, code.points_per_symbol, (code.num_states + 31) // 32
+    g = torch.Generator(device=dev).manual_seed(5)
+    for n, (B, T) in enumerate(LONGFRAME_DECODE_SHAPES):
+        d = torch.rand((T, M, B), generator=g, device=dev) * 8.0
+        init = torch.full((S, B), BIG_METRIC, device=dev)
+        init[0] = 0.0
+        fm, dec = lc.stream_acs_cuda(code, d, init, False)
+        start = first_argmin(fm, dim=0).to(torch.int32)
+        bits, carry = lc.stream_traceback_cuda(code, dec, start)
+        k = {"stream_acs": cuda_ms(lambda: lc.stream_acs_cuda(code, d, init, False), 10),
+             "stream_traceback": cuda_ms(lambda: lc.stream_traceback_cuda(code, dec, start), 10)}
+        (fm_r, dec_r), p_acs = cuda_call(lambda: lc.stream_acs_ref(code, d, init, False))
+        (bits_r, carry_r), p_tb = cuda_call(lambda: lc.stream_traceback_ref(code, dec, start))
+        err = float((fm - fm_r).abs().max())
+        same = (err == 0.0 and torch.equal(dec, dec_r) and torch.equal(bits, bits_r)
+                and torch.equal(carry, carry_r))
+        stats["stream_acs"] = max(stats["stream_acs"], err)
+        stats["stream_traceback"] = max(stats["stream_traceback"],
+                                        float((bits - bits_r).abs().max()))
+        p = {"stream_acs": p_acs, "stream_traceback": p_tb}
+        b = {"stream_acs": max(((T * M + 2 * S + T * nw) * 4 * B / HBM_BYTES_PER_S * 1e3,
+                                "bytes"), (8 * S * T * B / slots * 1e3, "operations")),
+             "stream_traceback": ((T * nw + 2 + T) * 4 * B / HBM_BYTES_PER_S * 1e3, "bytes")}
+        print(f"stream kernels [{card}]: nasa-k7 B={B} T={T} ({T} dependent steps): "
+              f"stream_acs {k['stream_acs']:.4f} ms (plain {p['stream_acs']:.1f} ms, bound "
+              f"{b['stream_acs'][0]:.4f} ms {b['stream_acs'][1]}), stream_traceback "
+              f"{k['stream_traceback']:.4f} ms (plain {p['stream_traceback']:.1f} ms, bound "
+              f"{b['stream_traceback'][0]:.4f} ms bytes); decode "
+              f"{B * (T - 6) / (k['stream_acs'] + k['stream_traceback']) * 1e3:.4e} info bits/s; "
+              f"fm, decisions, bits and carry {'equal to' if same else 'DIFFERENT from'} the "
+              f"plain versions (max |fm diff| {err:g})")
+        require(same, f"stream kernels vs plain at B={B}, T={T}")
+        if n == 0:
+            for name in ("stream_acs", "stream_traceback"):
+                times[name], plain[name], bound[name] = k[name], p[name], b[name]
+        del d, dec, dec_r
+    return times, plain, bound
+
+
 def main() -> int:
     import torch
 
@@ -557,6 +851,8 @@ def main() -> int:
     from convolutional_codes_tpu_torch.ops import fano_mc, stack_mc
     from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
     from convolutional_codes_tpu_torch.ops import fused_chain as fc
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
     from convolutional_codes_tpu_torch.utils import build
 
     with phase("2 build"):
@@ -566,12 +862,15 @@ def main() -> int:
 
     wrappers = {"acs_forward": vc.acs_forward_cuda, "traceback": vc.traceback_cuda,
                 "mc_chain": fc.mc_chain_viterbi, "mc_stack": stack_mc.mc_stack,
-                "mc_fano": fano_mc.mc_fano}
+                "mc_fano": fano_mc.mc_fano, "stream_acs": lc.stream_acs_cuda,
+                "stream_traceback": lc.stream_traceback_cuda,
+                "mc_longframe": fl.mc_longframe_viterbi}
     stats = {k: 0.0 for k in wrappers}
     with phase("3 kernels against their plain versions"):
         check_viterbi_kernels(torch, dev, stats)
         check_fused_kernel(torch, dev, stats)
         check_sequential_kernels(torch, dev, stats)
+        check_longframe_kernels(torch, dev, stats)
         for k, w in wrappers.items():
             require(w.launches > 0, f"kernel {k} was never launched")
         print("launches in the checks: " + ", ".join(
@@ -586,6 +885,8 @@ def main() -> int:
             torch, dev, tmp, "stack", "0.01", range(10, 17)), gold, "ber_coded_a_stack")),
         "fano": (("mc_fano",), lambda tmp: check_points(run_sequential_path(
             torch, dev, tmp, "fano", "0.01", range(10, 14)), gold, "ber_coded_a_fano")),
+        "long frames": (("mc_longframe", "stream_acs", "stream_traceback"),
+                        lambda tmp: run_longframe_path(torch, dev)),
     }
     launches = {}
     for path, (kernels, drive) in paths.items():
@@ -604,18 +905,23 @@ def main() -> int:
         card, clock = card_line(), sm_clock_hz()
         print(f"max SM clock {clock / 1e6:.0f} MHz")
         times, plain, bound = measure(torch, dev, card, clock)
-        for d in zip((times, plain, bound), measure_sequential(torch, dev, card, clock)):
-            d[0].update(d[1])
+        for measured in (measure_sequential(torch, dev, card, clock),
+                         measure_longframe(torch, dev, card, clock, stats)):
+            for d in zip((times, plain, bound), measured):
+                d[0].update(d[1])
 
     require("jax" not in sys.modules, "the port imported JAX")
     ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "convolutional_codes_tpu")
     require(not ref_pkg, f"the port imported the JAX package: {ref_pkg}")
     print(f"total wall {time.time() - t_start:.1f} s")
-    sources = {"acs_forward": ("viterbi.cu", "viterbi_pallas.py:86"),
-               "traceback": ("viterbi.cu", "viterbi_pallas.py:207"),
+    sources = {"acs_forward": ("longframe.cu", "viterbi_pallas.py:86"),
+               "traceback": ("longframe.cu", "viterbi_pallas.py:207"),
                "mc_chain": ("fused_chain.cu", "fused_chain.py:400"),
                "mc_stack": ("stack_mc.cu", "stack_mc.py:84"),
-               "mc_fano": ("fano_mc.cu", "fano_mc.py:65")}
+               "mc_fano": ("fano_mc.cu", "fano_mc.py:65"),
+               "stream_acs": ("longframe.cu", "longframe_pallas.py:142"),
+               "stream_traceback": ("longframe.cu", "longframe_pallas.py:218"),
+               "mc_longframe": ("longframe_mc.cu", "fused_longframe.py:84")}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"convolutional_codes_tpu_torch/csrc/{sources[k][0]}",
                 "replaces": f"convolutional_codes_tpu/ops/{sources[k][1]}",

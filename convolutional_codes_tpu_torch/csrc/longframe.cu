@@ -1,0 +1,316 @@
+// Viterbi add-compare-select and traceback kernels for Hopper (sm_90a):
+// the decode of supplied frames, short terminated blocks and streams of
+// any length alike.
+//
+// Replace four TPU kernels: convolutional_codes_tpu/ops/viterbi_pallas.py
+// `_acs_kernel` (:86, entry acs_forward_pallas :157) and `_traceback_kernel`
+// (:207, entry traceback_pallas :232), and longframe_pallas.py :142 (body
+// of stream_acs_pallas :112) and :218 (body of stream_traceback_pallas
+// :192).  The TPU's streaming kernels cut the frame into VMEM time chunks
+// and carry the [S, B] metrics (or the survivor state) across grid steps;
+// here one launch walks the whole frame, so one pair of kernels serves
+// blocks of T = 42 and streams of T = 65,536.
+//
+// stream_acs.  What bounds it on the H100: a frame is a chain of T
+// dependent trellis steps, each about 8 S operations on M floats in and
+// S/32 decision words out.  One thread per frame, which does the S states
+// of a step one after the other, leaves B = 128 or 1,024 long frames (the
+// real-data shapes) at 128 or 1,024 threads on 132 SMs, and spills the
+// metrics of S >= 128 to local memory at any B.  So the work is laid out
+// by state: one thread per (frame, butterfly j), which computes new states
+// j and j + S/2 from their common predecessors 2j and 2j+1 with the same
+// float operations as ops/viterbi.acs_scan (c0 = m[2j] + bm[esym0], c1 =
+// m[2j+1] + bm[esym1], 0xFF00 saturation in hard mode, strict-less
+// select).  For S <= 64 a frame's S/2 threads sit in one warp (S < 64:
+// 64/S frames per warp), the new metrics move to the threads that need
+// them by warp shuffles and no barrier is needed; for S >= 128 they go
+// through shared memory with one barrier per step.  Decisions are packed
+// by __ballot_sync.  The distances of the next chunk of steps are loaded
+// into registers while the current chunk runs from shared memory, and the
+// decision words of a chunk leave through shared memory.  The serial
+// chain of T steps stays; each step is a few dozen instructions of one
+// warp instead of 8 S of one thread.
+//
+// stream_traceback.  One thread per frame, T dependent steps, from given
+// start states or from the first state of least final metric (a
+// strict-less scan from state 0, so no library argmin decides a tie).
+// What bounds it is the latency of that chain: the addresses of a row's
+// decision words do not depend on the survivor state, so every word of a
+// group of rows is loaded before the group is walked, and the next group
+// is in flight while the current one is walked (two register buffers of
+// 32 words).
+#include "acs.cuh"
+
+namespace {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Thread layout of stream_acs for S states: H = S/2 threads per frame.
+template <int S>
+struct AcsLayout {
+  static constexpr int H = S / 2;
+  static constexpr int THREADS = H < 32 ? 32 : H;   // threads per block
+  static constexpr int FPB = H < 32 ? 32 / H : 1;   // frames per block
+  static constexpr int NW = (S + 31) / 32;          // decision words per step
+};
+
+// Steps staged per chunk: about 8 distance floats per thread.
+template <int S, int M>
+struct AcsChunk {
+  using L = AcsLayout<S>;
+  static constexpr int CH0 = 8 * L::THREADS / (M * L::FPB);
+  static constexpr int CH = CH0 < 1 ? 1 : CH0;
+  static constexpr int ELEMS = CH * M * L::FPB;     // floats of a chunk
+  static constexpr int PER = (ELEMS + L::THREADS - 1) / L::THREADS;
+};
+
+// Load the [CH, M, FPB] distances of steps t0.. of the block's frames
+// into registers (zeros past T or B).
+template <int S, int M>
+__device__ __forceinline__ void load_chunk(float (&pre)[AcsChunk<S, M>::PER],
+                                           const float* __restrict__ dists, int t0, int T,
+                                           int b0, int B) {
+  using L = AcsLayout<S>;
+  using C = AcsChunk<S, M>;
+#pragma unroll
+  for (int k = 0; k < C::PER; ++k) {
+    const int i = threadIdx.x + k * L::THREADS;
+    const int f = i % L::FPB, e = (i / L::FPB) % M, t = t0 + i / (L::FPB * M);
+    pre[k] = (i < C::ELEMS && t < T && b0 + f < B)
+                 ? dists[((size_t)t * M + e) * (size_t)B + b0 + f]
+                 : 0.0f;
+  }
+}
+
+template <int S, int M>
+__device__ __forceinline__ void store_chunk(float* buf,
+                                            const float (&pre)[AcsChunk<S, M>::PER]) {
+  using L = AcsLayout<S>;
+  using C = AcsChunk<S, M>;
+#pragma unroll
+  for (int k = 0; k < C::PER; ++k) {
+    const int i = threadIdx.x + k * L::THREADS;
+    if (i < C::ELEMS) buf[i] = pre[k];
+  }
+}
+
+template <int S, int M>
+__global__ void __launch_bounds__(AcsLayout<S>::THREADS)
+stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ init,
+                  float* __restrict__ fm, int* __restrict__ dec, int T, int B, int hard,
+                  const __grid_constant__ TrellisTables tt) {
+  using L = AcsLayout<S>;
+  using C = AcsChunk<S, M>;
+  constexpr int H = L::H, FPB = L::FPB, NW = L::NW, CH = C::CH;
+  __shared__ float bm_s[2][C::ELEMS];               // [chunk step][e][frame]
+  __shared__ unsigned dec_s[CH * NW * FPB];         // [chunk step][word][frame]
+  __shared__ float2 m_s[2][H >= 64 ? H : 1];        // metric exchange, S >= 128
+
+  const int tid = threadIdx.x;
+  const int f = tid / H;               // frame within the block
+  const int j = tid % H;               // butterfly: new states j and j + H
+  const int b0 = blockIdx.x * FPB;
+  const int b = b0 + f;
+  const bool valid = b < B;
+  const size_t Bs = (size_t)B;
+  const int e0a = tt.esym0[j], e1a = tt.esym1[j];
+  const int e0b = tt.esym0[j + H], e1b = tt.esym1[j + H];
+  float m0 = valid ? init[(size_t)(2 * j) * Bs + b] : 0.0f;       // m[2j]
+  float m1 = valid ? init[(size_t)(2 * j + 1) * Bs + b] : 0.0f;   // m[2j+1]
+  float na = 0.0f, nb = 0.0f;                                     // new m[j], m[j+H]
+
+  const int nchunks = (T + CH - 1) / CH;
+  float pre[C::PER];
+  load_chunk<S, M>(pre, dists, 0, T, b0, B);
+  store_chunk<S, M>(bm_s[0], pre);
+  __syncthreads();
+  for (int c = 0; c < nchunks; ++c) {
+    const int t0 = c * CH;
+    if (c + 1 < nchunks) load_chunk<S, M>(pre, dists, t0 + CH, T, b0, B);
+    const float* bmc = bm_s[c & 1] + f;
+    const int steps = min(CH, T - t0);
+#pragma unroll 4   // lets the distance loads of later steps issue early
+    for (int tl = 0; tl < steps; ++tl) {
+      const float* row = bmc + tl * M * FPB;
+      float c0a = m0 + row[e0a * FPB], c1a = m1 + row[e1a * FPB];
+      float c0b = m0 + row[e0b * FPB], c1b = m1 + row[e1b * FPB];
+      if (hard) {
+        c0a = fminf(c0a, CC_HARD_SAT);
+        c1a = fminf(c1a, CC_HARD_SAT);
+        c0b = fminf(c0b, CC_HARD_SAT);
+        c1b = fminf(c1b, CC_HARD_SAT);
+      }
+      const bool da = c1a < c0a, db = c1b < c0b;   // strict: ties keep branch 0
+      na = da ? c1a : c0a;
+      nb = db ? c1b : c0b;
+      const unsigned bf = __ballot_sync(kFull, da), bs = __ballot_sync(kFull, db);
+      if constexpr (H < 32) {
+        // the warp holds FPB frames; frame f's states j are lanes f*H + j
+        if (j == 0) {
+          constexpr unsigned mask = (1u << H) - 1u;
+          dec_s[tl * FPB + f] = ((bf >> (f * H)) & mask) | (((bs >> (f * H)) & mask) << H);
+        }
+      } else if ((tid & 31) == 0) {
+        // warp k of the frame holds states 32k.. (word k) and H + 32k.. (word H/32 + k)
+        const int k = tid >> 5;
+        dec_s[(tl * NW + k) * FPB] = bf;
+        dec_s[(tl * NW + H / 32 + k) * FPB] = bs;
+      }
+      if constexpr (H <= 32) {
+        // m[2j] and m[2j+1] live in lanes 2j mod H, 2j+1 mod H, as their
+        // first (index < H) or second new state
+        const int s0 = (2 * j) & (H - 1), s1 = (2 * j + 1) & (H - 1);
+        const float a0 = __shfl_sync(kFull, na, s0, H), q0 = __shfl_sync(kFull, nb, s0, H);
+        const float a1 = __shfl_sync(kFull, na, s1, H), q1 = __shfl_sync(kFull, nb, s1, H);
+        m0 = 2 * j < H ? a0 : q0;
+        m1 = 2 * j + 1 < H ? a1 : q1;
+      } else {
+        float* mx = reinterpret_cast<float*>(m_s[(t0 + tl) & 1]);
+        mx[j] = na;
+        mx[j + H] = nb;
+        __syncthreads();
+        const float2 p = m_s[(t0 + tl) & 1][j];
+        m0 = p.x;
+        m1 = p.y;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < steps * NW * FPB; i += L::THREADS) {
+      const int ff = i % FPB, w = (i / FPB) % NW, tl = i / (FPB * NW);
+      if (b0 + ff < B) dec[((size_t)(t0 + tl) * NW + w) * Bs + b0 + ff] = (int)dec_s[i];
+    }
+    if (c + 1 < nchunks) store_chunk<S, M>(bm_s[(c + 1) & 1], pre);
+    __syncthreads();
+  }
+  if (valid) {
+    fm[(size_t)j * Bs + b] = na;
+    fm[(size_t)(j + H) * Bs + b] = nb;
+  }
+}
+
+constexpr int kTbThreads = 32;
+
+// Rows per group of the traceback: 32 words in flight per buffer.
+template <int NW>
+struct TbGroup {
+  static constexpr int U = 32 / NW;
+};
+
+template <int NW>
+__device__ __forceinline__ void tb_load(unsigned (&w)[TbGroup<NW>::U][NW],
+                                        const int* __restrict__ dec, int g, int T, size_t Bs,
+                                        int b) {
+#pragma unroll
+  for (int u = 0; u < TbGroup<NW>::U; ++u) {
+    const int t = T - 1 - (g * TbGroup<NW>::U + u);
+    if (t >= 0) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) w[u][k] = (unsigned)dec[((size_t)t * NW + k) * Bs + b];
+    }
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void tb_walk(unsigned (&w)[TbGroup<NW>::U][NW],
+                                        int* __restrict__ bits, int g, int T, size_t Bs,
+                                        int b, int K, unsigned half_mask, unsigned& cur) {
+#pragma unroll
+  for (int u = 0; u < TbGroup<NW>::U; ++u) {
+    const int t = T - 1 - (g * TbGroup<NW>::U + u);
+    if (t >= 0) {
+      // select by masks, not by `?:` on the array: a select of two array
+      // elements may become a load from a selected address, which moves
+      // the buffers to local memory
+      unsigned word = 0;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) word |= w[u][k] & (0u - (unsigned)((cur >> 5) == (unsigned)k));
+      bits[(size_t)t * Bs + b] = (int)(cur >> (K - 2));
+      cur = ((cur & half_mask) << 1) | ((word >> (cur & 31u)) & 1u);
+    }
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kTbThreads)
+stream_traceback_kernel(const int* __restrict__ dec, const int* __restrict__ start,
+                        const float* __restrict__ fm, int* __restrict__ bits,
+                        int* __restrict__ carry, float* __restrict__ min_metric, int T,
+                        int B, int S, int K) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t Bs = (size_t)B;
+  const unsigned half_mask = (unsigned)(S >> 1) - 1u;
+  unsigned cur;
+  if (start != nullptr) {
+    cur = (unsigned)start[b];
+  } else {
+    // the first state of least final metric, and that metric
+    float best = fm[b];
+    cur = 0;
+    for (int s = 1; s < S; ++s) {
+      const float v = fm[(size_t)s * Bs + b];
+      if (v < best) {
+        best = v;
+        cur = (unsigned)s;
+      }
+    }
+    min_metric[b] = best;
+  }
+  unsigned wa[TbGroup<NW>::U][NW], wb[TbGroup<NW>::U][NW];
+  const int ng = (T + TbGroup<NW>::U - 1) / TbGroup<NW>::U;
+  tb_load<NW>(wa, dec, 0, T, Bs, b);
+  for (int g = 0; g < ng; g += 2) {
+    tb_load<NW>(wb, dec, g + 1, T, Bs, b);
+    tb_walk<NW>(wa, bits, g, T, Bs, b, K, half_mask, cur);
+    tb_load<NW>(wa, dec, g + 2, T, Bs, b);
+    tb_walk<NW>(wb, bits, g + 1, T, Bs, b, K, half_mask, cur);
+  }
+  if (carry != nullptr) carry[b] = (int)cur;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dists [T, M, B] f32, init [S, B] f32 -> fm [S, B] f32, dec [T, nwords, B]
+// i32.  esym_prev: host [S, 2] int32.  Returns cudaGetLastError().
+int cc_stream_acs(const float* dists, const float* init, float* fm, int* dec, int T, int M,
+                  int B, int S, int hard, const int* esym_prev, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES) return cudaErrorInvalidValue;
+  TrellisTables tt;
+  fill_trellis(&tt, esym_prev, S);
+#define CC_LAUNCH_STREAM_ACS(S_, M_)                                                   \
+  stream_acs_kernel<S_, M_>                                                            \
+      <<<(B + AcsLayout<S_>::FPB - 1) / AcsLayout<S_>::FPB, AcsLayout<S_>::THREADS, 0, \
+         stream>>>(dists, init, fm, dec, T, B, hard, tt)
+  CC_DISPATCH(S, M, CC_LAUNCH_STREAM_ACS)
+#undef CC_LAUNCH_STREAM_ACS
+  return (int)cudaGetLastError();
+}
+
+// dec [T, nwords, B] i32 -> bits [T, B] i32 and carry [B] i32 (the state
+// before row 0; may be null), traced back from start [B] i32 or, when
+// start is null, from the first state of least metric in fm [S, B] f32,
+// whose metric goes to min_metric [B] f32.  Returns cudaGetLastError().
+int cc_stream_traceback(const int* dec, const int* start, const float* fm, int* bits,
+                        int* carry, float* min_metric, int T, int B, int S, int K, int nwords,
+                        cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES || nwords != (S + 31) / 32 ||
+      (start == nullptr && (fm == nullptr || min_metric == nullptr)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((B + kTbThreads - 1) / kTbThreads);
+#define CC_LAUNCH_TB(NW_)                                                             \
+  stream_traceback_kernel<NW_><<<grid, kTbThreads, 0, stream>>>(dec, start, fm, bits, carry, \
+                                                                min_metric, T, B, S, K)
+  switch (nwords) {
+    case 1: CC_LAUNCH_TB(1); break;
+    case 2: CC_LAUNCH_TB(2); break;
+    case 4: CC_LAUNCH_TB(4); break;
+    case 8: CC_LAUNCH_TB(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef CC_LAUNCH_TB
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

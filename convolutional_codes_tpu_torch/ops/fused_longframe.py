@@ -1,21 +1,49 @@
-"""Coordinate hash of the long-frame Monte-Carlo chain.
+"""Fused long-frame Monte-Carlo Viterbi chain (BASELINE configs 0 and 2):
+the CUDA kernel, its plain version, and the coordinate hash they share.
 
-All randomness of the sequential Monte-Carlo paths (``ops/mc_datagen.py``)
-is a pure counter hash of (seed, lane or frame id, position, salt): two
-rounds of the murmur3 32-bit finalizer over a Weyl-mixed counter — the
-JAX package's ``coord_bits``/``coord_uniform`` (fused_longframe.py:56-81),
-bit for bit.  The CUDA twin is ``csrc/sequential.cuh``.  The long-frame
-kernel (TPU kernel 6) that this module is named after is not ported yet.
+Every lane simulates its own unterminated coded stream and decodes it in
+overlap-save windows: ``window`` payload symbols with ``warmup``-symbol
+halos on both sides, from uniform (zero) start metrics; the left halo warms
+the metrics up, the right halo lets the traceback re-converge onto the
+survivor path, and only payload bits are error-counted.  Window ``win0 +
+step`` of a lane covers stream positions ``(win0 + step) * window - warmup``
+on; the K-1 info bits before them seed the encoder register.
 
-CPU torch has no uint32 arithmetic, so the hash runs in int64 masked to
-32 bits (``utils/bitops.py``).
+All randomness is a pure counter hash of (seed, global lane, stream
+position, salt): two rounds of the murmur3 32-bit finalizer over a
+Weyl-mixed counter — the JAX package's ``coord_bits``/``coord_uniform``
+(fused_longframe.py:56-81), bit for bit — so a position draws the same
+bits and noise in every window that covers it, and a run split by window
+ranges (``win0``) sums to the whole run exactly.  The CUDA twin of the hash
+is ``csrc/sequential.cuh``.  CPU torch has no uint32 arithmetic, so the
+hash runs in int64 masked to 32 bits (``utils/bitops.py``).
+
+``mc_longframe_viterbi`` launches ``csrc/longframe_mc.cu``, which replaces
+the TPU kernel ``_mc_longframe_kernel`` (fused_longframe.py:84) behind
+``mc_longframe_viterbi`` (:223); it takes a ``device``: CPU runs
+:func:`mc_longframe_viterbi_ref`, CUDA launches the kernel (counted in
+``mc_longframe_viterbi.launches``) or raises.  BSC counters agree exactly
+between the two; AWGN counters up to the last-ulp differences of
+log/sqrt/sin/cos between math libraries.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Tuple
+
 import torch
 
-from convolutional_codes_tpu_torch.utils.bitops import MASK32, mul32
+from convolutional_codes_tpu_torch.models.codebook import Code
+from convolutional_codes_tpu_torch.models.tables import code_tables
+from convolutional_codes_tpu_torch.ops.encoder import register_symbols
+from convolutional_codes_tpu_torch.ops.fused_chain import (
+    CHANNELS, DEMAPPERS, MAX_POINTS, MAX_STATES, _TWO_PI, _dist_vec, _snap)
+from convolutional_codes_tpu_torch.ops.viterbi import (
+    HARD_METRIC_SAT, acs_scan, hard_branch_metrics, traceback_from)
+from convolutional_codes_tpu_torch.utils.bitops import MASK32, first_argmin, mul32
+from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
 
 def _fmix32(x: torch.Tensor) -> torch.Tensor:
@@ -42,3 +70,156 @@ def coord_uniform(lane: torch.Tensor, pos: torch.Tensor, seed: int,
     """float32 in (0, 1) from 31 hash bits: ``(bits >> 1) * 2^-31 + 2^-32``."""
     bits = (coord_bits(lane, pos, seed, salt) >> 1).to(torch.float32)
     return bits * torch.tensor(2.0 ** -31) + torch.tensor(2.0 ** -32)
+
+
+def _check_args(code: Code, channel: str, demapper: str, window: int,
+                warmup: int) -> int:
+    """The limits of the long-frame chain; returns the window length with
+    halos, ``Tw = window + 2 * warmup``."""
+    if channel not in CHANNELS:
+        raise ValueError(f"channel must be one of {CHANNELS}, got {channel!r}")
+    if demapper not in DEMAPPERS:
+        raise ValueError(f"demapper must be one of {DEMAPPERS}, got {demapper!r}")
+    if window < 1 or warmup < 0:
+        raise ValueError(f"need window >= 1 and warmup >= 0, got {window}, {warmup}")
+    Tw = window + 2 * warmup
+    if channel == "bsc" and 2 * Tw >= HARD_METRIC_SAT:
+        raise ValueError(f"window+halos {Tw} too long for saturating hard metrics "
+                         "(metric ceiling 0xFF00)")
+    if code.num_states > MAX_STATES or code.points_per_symbol > MAX_POINTS:
+        raise NotImplementedError(
+            f"the long-frame chain supports S <= {MAX_STATES} and M <= {MAX_POINTS}; "
+            f"{code.name} has S={code.num_states}, M={code.points_per_symbol}")
+    if channel == "awgn" and code_tables(code).points_np is None:
+        raise ValueError(f"no constellation for {code.symlen_out} bits/symbol")
+    return Tw
+
+
+def stream_segment_host(code: Code, lane_ids, seed: int, param, channel: str,
+                        start: int, length: int, demapper: str = "soft", device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact stream segment the kernel simulates for the given lanes:
+    info bits and branch metrics at stream positions ``start`` ..
+    ``start + length - 1`` — same hash, same flip and Box-Muller draws, same
+    float32 expressions — as whole-tensor ops.  Returns (bits [B, length]
+    int32, dists [B, length, 2^m] float32: demapper distances on AWGN,
+    Hamming distances on BSC), on ``device`` (default: that of
+    ``lane_ids``, else the CPU)."""
+    K = code.constraint_length
+    lanes = torch.as_tensor(lane_ids, dtype=torch.int64, device=device)[:, None]
+    tables = code_tables(code, lanes.device)
+    pos = torch.arange(start - (K - 1), start + length, dtype=torch.int64,
+                       device=lanes.device)[None, :]
+    bits = coord_bits(lanes, pos, seed, 0) & 1                  # [B, length + K-1]
+    reg = torch.zeros((lanes.shape[0], length), dtype=torch.int64, device=lanes.device)
+    for age in range(K):   # age 0 = the newest bit, at register bit K-1
+        reg = reg | (bits[:, K - 1 - age: K - 1 - age + length] << (K - 1 - age))
+    esym = register_symbols(code, reg)
+    ppos = pos[:, K - 1:]
+    param_f = torch.tensor(float(param), dtype=torch.float32)
+    if channel == "bsc":
+        fmask = torch.zeros_like(esym)
+        for k in range(code.symlen_out):
+            flip = coord_uniform(lanes, ppos, seed, 1 + k) < param_f
+            fmask = fmask | (flip.to(torch.int64) << k)
+        dists = hard_branch_metrics(code, esym ^ fmask).to(torch.float32)
+    else:
+        u0 = coord_uniform(lanes, ppos, seed, 1)
+        u1 = coord_uniform(lanes, ppos, seed, 2)
+        r = torch.sqrt(-2.0 * torch.log(u0))
+        theta = torch.tensor(_TWO_PI, dtype=torch.float32) * u1
+        rxi = tables.points[esym, 0] + param_f * (r * torch.cos(theta))
+        rxq = tables.points[esym, 1] + param_f * (r * torch.sin(theta))
+        dvec = _dist_vec(tables, rxi, rxq)                       # [M, B, length]
+        if demapper == "hard":
+            dvec = _dist_vec(tables, *_snap(tables, dvec))
+        dists = dvec.permute(1, 2, 0).contiguous()
+    return bits[:, K - 1:].to(torch.int32), dists
+
+
+def mc_longframe_viterbi_ref(code: Code, lanes: int, nsteps: int, seed, param,
+                             channel: str = "awgn", demapper: str = "soft",
+                             window: int = 1920, warmup: int = 128, win0: int = 0,
+                             device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`mc_longframe_viterbi`: one window at a time
+    for all lanes — the segment from :func:`stream_segment_host`, the plain
+    ACS scan from zero metrics, the first-argmin end state and the plain
+    traceback — with errors counted on the payload rows."""
+    Tw = _check_args(code, channel, demapper, window, warmup)
+    device = torch.device(device)
+    lane_ids = torch.arange(lanes, dtype=torch.int64, device=device)
+    zeros = torch.zeros((code.num_states, lanes), dtype=torch.float32, device=device)
+    pay = slice(warmup, warmup + window)
+    errs = torch.zeros(lanes, dtype=torch.int32, device=device)
+    werrs = torch.zeros(lanes, dtype=torch.int32, device=device)
+    for step in range(nsteps):
+        bits, dists = stream_segment_host(code, lane_ids, seed, param, channel,
+                                          (win0 + step) * window - warmup, Tw, demapper)
+        fm, dec = acs_scan(code, dists.permute(1, 2, 0).contiguous(), zeros,
+                           channel == "bsc")
+        decoded = traceback_from(code, dec, first_argmin(fm, dim=0))
+        mism = decoded[:, pay] != bits[:, pay]
+        errs += mism.sum(1, dtype=torch.int32)
+        werrs += mism.any(1).to(torch.int32)
+    return errs, werrs
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = load_library("longframe_mc")
+    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.cc_mc_longframe.argtypes = [P, P, I, I, I, I, I, U, F, I, I, I, I, P, P, P, U, F, P]
+    lib.cc_mc_longframe.restype = I
+    return lib
+
+
+def mc_longframe_viterbi(code: Code, lanes: int, nsteps: int, seed, param,
+                         channel: str = "awgn", demapper: str = "soft",
+                         window: int = 1920, warmup: int = 128, win0: int = 0,
+                         device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Monte-Carlo long-frame Viterbi chain: each of ``lanes`` coded streams
+    advances ``nsteps`` windows (``win0`` on) of ``window`` payload symbols
+    plus ``warmup``-symbol halos.
+
+    ``channel``: "awgn" (param = sigma, soft metrics; ``demapper`` "soft"
+    or "hard" snap-then-distance) or "bsc" (param = crossover probability,
+    0xFF00-saturating Hamming metrics).  Returns per-lane (bit_errors,
+    window_errors) int32; the run simulates ``lanes * nsteps * window``
+    info bits.
+
+    ``win0`` is the first window's index in each lane's stream.  One-device
+    callers leave it at 0; it is the hook for sharding a run's windows
+    over devices by time range (ROADMAP Q1 item 14), where window ranges
+    that tile ``[0, n)`` sum to the ``n``-window counters exactly.
+    """
+    device = torch.device(device)
+    if device.type == "cpu":
+        return mc_longframe_viterbi_ref(code, lanes, nsteps, seed, param, channel,
+                                        demapper, window, warmup, win0, device)
+    if device.type != "cuda":
+        raise ValueError(f"mc_longframe_viterbi runs on CPU or CUDA, got {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("mc_longframe_viterbi: no CUDA device (pass device='cpu' "
+                           "for the plain version)")
+    from convolutional_codes_tpu_torch.ops.mc_datagen import seq_params  # imports this module
+
+    Tw = _check_args(code, channel, demapper, window, warmup)
+    if lanes <= 0 or nsteps < 0:
+        raise ValueError(f"need lanes > 0 and nsteps >= 0, got {lanes}, {nsteps}")
+    tables = code_tables(code, device)
+    points, polys, qmask, inv_nd = seq_params(code, channel, device)
+    scratch = torch.empty((Tw, tables.nwords, lanes), dtype=torch.int32, device=device)
+    out = torch.empty((2, lanes), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        status = _lib().cc_mc_longframe(
+            out.data_ptr(), scratch.data_ptr(), lanes, int(nsteps), int(win0), warmup,
+            window, int(seed) & MASK32, float(param), int(channel == "awgn"),
+            int(demapper == "hard"), code.constraint_length, code.symlen_out,
+            tables.esym_prev_np.ctypes.data, points.ctypes.data, polys.ctypes.data, qmask,
+            inv_nd, torch.cuda.current_stream().cuda_stream)
+    check_status(status, "mc_longframe_viterbi")
+    mc_longframe_viterbi.launches += 1
+    return out[0], out[1]
+
+
+mc_longframe_viterbi.launches = 0

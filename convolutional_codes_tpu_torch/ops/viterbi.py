@@ -114,12 +114,14 @@ def acs_forward(code: Code, branch_metrics: torch.Tensor, hard: bool,
     return fm.T, dec
 
 
-def traceback_from(code: Code, decisions: torch.Tensor,
-                   start_states: torch.Tensor) -> torch.Tensor:
-    """Traceback from explicit per-frame start states.
+def traceback_carry(code: Code, decisions: torch.Tensor, start_states: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Traceback from explicit per-frame start states, carrying the state out.
 
     ``decisions``: packed [T, nwords, B]; ``start_states``: [B].  Returns
-    bits [B, T] int32 (the input bit into each state on the path).
+    (bits [B, T] int32 — the input bit into each state on the path —, the
+    state before row 0 [B] int64), so a frame can be traced back in
+    segments, last segment first.
     """
     T = decisions.shape[0]
     S = code.num_states
@@ -132,7 +134,17 @@ def traceback_from(code: Code, decisions: torch.Tensor,
         b = ((word & MASK32) >> (cur & 31)) & 1
         bits[t] = (cur >> (K - 2)).to(torch.int32)
         cur = ((cur & half_mask) << 1) | b
-    return bits.T
+    return bits.T, cur
+
+
+def traceback_from(code: Code, decisions: torch.Tensor,
+                   start_states: torch.Tensor) -> torch.Tensor:
+    """Traceback from explicit per-frame start states.
+
+    ``decisions``: packed [T, nwords, B]; ``start_states``: [B].  Returns
+    bits [B, T] int32 (the input bit into each state on the path).
+    """
+    return traceback_carry(code, decisions, start_states)[0]
 
 
 def _decode(code: Code, bm: torch.Tensor, hard: bool

@@ -1,13 +1,18 @@
-"""CUDA Viterbi kernels (``csrc/viterbi.cu``) and their plain versions.
+"""CUDA Viterbi kernels (``csrc/longframe.cu``) and their plain versions.
 
 ``acs_forward_cuda`` replaces the TPU kernel ``acs_forward_pallas``
 (viterbi_pallas.py:157) and ``traceback_cuda`` replaces
 ``traceback_pallas`` (:232), with the same kernel-entry layouts:
 ``[T, M, B]`` float32 distances and ``[S, B]`` float32 start metrics in,
 ``[S, B]`` final metrics and ``[T, nwords, B]`` int32 packed decisions out;
-``[T, B]`` int32 bits from the traceback.  The traceback kernel also does
-the end-state argmin, so it takes the final metrics rather than start
-states, and returns the winning metric beside the bits.
+``[T, B]`` int32 bits from the traceback.  The traceback also does the
+end-state argmin, so it takes the final metrics rather than start states,
+and returns the winning metric beside the bits.
+
+They launch the same two device kernels as the streaming decode of
+:mod:`ops.longframe_cuda` (whose wrappers are built on :func:`_acs` and
+:func:`_traceback` here): a kernel laid out by state serves the short
+terminated blocks of the modular chain as well as streams of any length.
 
 A CPU tensor runs the plain version (``acs_forward_ref``/
 ``traceback_ref``); a CUDA tensor launches the kernel or raises.  Each
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,12 +40,22 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = load_library("viterbi")
-    lib.cc_acs_forward.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
-    lib.cc_acs_forward.restype = _I
-    lib.cc_traceback.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.cc_traceback.restype = _I
+    lib = load_library("longframe")
+    lib.cc_stream_acs.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+    lib.cc_stream_acs.restype = _I
+    lib.cc_stream_traceback.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.cc_stream_traceback.restype = _I
     return lib
+
+
+def _runs_plain(x: torch.Tensor, what: str) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA one
+    (the kernel launches); raises for any other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} takes CPU or CUDA tensors, got {x.device}")
+    return False
 
 
 def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
@@ -76,33 +91,71 @@ def traceback_ref(code: Code, decisions: torch.Tensor, final_metrics: torch.Tens
     return bits, final_metrics.amin(dim=0)
 
 
-def acs_forward_cuda(code: Code, dists_tmb: torch.Tensor, init_sb: torch.Tensor,
-                     hard: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward ACS over a ``[T, M, B]`` float32 distance stream from
-    ``[S, B]`` float32 start metrics (BIG_METRIC, not inf).  Returns
-    (final metrics [S, B] float32, decisions [T, nwords, B] int32)."""
-    if dists_tmb.device.type == "cpu":
-        return acs_forward_ref(code, dists_tmb, init_sb, hard)
-    if dists_tmb.device.type != "cuda":
-        raise ValueError(f"acs_forward_cuda takes CPU or CUDA tensors, "
-                         f"got {dists_tmb.device}")
+def _acs(code: Code, dists_tmb: torch.Tensor, init_sb: torch.Tensor, hard: bool,
+         what: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the ACS kernel on CUDA tensors: (fm [S, B], dec [T, nwords, B])."""
     _check_code(code)
     tables = code_tables(code, dists_tmb.device)
     T, M, B = dists_tmb.shape
     S = code.num_states
+    if T < 1:
+        raise ValueError(f"{what} needs T >= 1")
     _check("dists_tmb", dists_tmb, (T, code.points_per_symbol, B), torch.float32,
            dists_tmb.device)
     _check("init_sb", init_sb, (S, B), torch.float32, dists_tmb.device)
     fm = torch.empty((S, B), dtype=torch.float32, device=dists_tmb.device)
     dec = torch.empty((T, tables.nwords, B), dtype=torch.int32, device=dists_tmb.device)
     with torch.cuda.device(dists_tmb.device):
-        status = _lib().cc_acs_forward(
+        status = _lib().cc_stream_acs(
             dists_tmb.data_ptr(), init_sb.data_ptr(), fm.data_ptr(), dec.data_ptr(),
             T, M, B, S, int(hard), tables.esym_prev_np.ctypes.data,
             torch.cuda.current_stream().cuda_stream)
-    check_status(status, "acs_forward_cuda")
-    acs_forward_cuda.launches += 1
+    check_status(status, what)
     return fm, dec
+
+
+def _traceback(code: Code, decisions: torch.Tensor, start: Optional[torch.Tensor],
+               final_metrics: Optional[torch.Tensor], what: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the traceback kernel on CUDA tensors from ``[B]`` int32 start
+    states, or, when ``start`` is None, from the first state of least
+    ``[S, B]`` final metric.  Returns (bits [T, B] int32, the state before
+    row 0 [B] int32 from start states, else the winning metric [B] float32)."""
+    _check_code(code)
+    T, nwords, B = decisions.shape
+    S = code.num_states
+    if T < 1:
+        raise ValueError(f"{what} needs T >= 1")
+    dev = decisions.device
+    _check("decisions", decisions, (T, (S + 31) // 32, B), torch.int32, dev)
+    bits = torch.empty((T, B), dtype=torch.int32, device=dev)
+    if start is not None:
+        _check("start", start, (B,), torch.int32, dev)
+        out = torch.empty((B,), dtype=torch.int32, device=dev)
+        ptrs = (start.data_ptr(), None, out.data_ptr(), None)
+    else:
+        _check("final_metrics", final_metrics, (S, B), torch.float32, dev)
+        out = torch.empty((B,), dtype=torch.float32, device=dev)
+        ptrs = (None, final_metrics.data_ptr(), None, out.data_ptr())
+    start_p, fm_p, carry_p, best_p = ptrs
+    with torch.cuda.device(dev):
+        status = _lib().cc_stream_traceback(
+            decisions.data_ptr(), start_p, fm_p, bits.data_ptr(), carry_p, best_p,
+            T, B, S, code.constraint_length, nwords, torch.cuda.current_stream().cuda_stream)
+    check_status(status, what)
+    return bits, out
+
+
+def acs_forward_cuda(code: Code, dists_tmb: torch.Tensor, init_sb: torch.Tensor,
+                     hard: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward ACS over a ``[T, M, B]`` float32 distance stream from
+    ``[S, B]`` float32 start metrics (BIG_METRIC, not inf).  Returns
+    (final metrics [S, B] float32, decisions [T, nwords, B] int32)."""
+    if _runs_plain(dists_tmb, "acs_forward_cuda"):
+        return acs_forward_ref(code, dists_tmb, init_sb, hard)
+    out = _acs(code, dists_tmb, init_sb, hard, "acs_forward_cuda")
+    acs_forward_cuda.launches += 1
+    return out
 
 
 acs_forward_cuda.launches = 0
@@ -113,26 +166,11 @@ def traceback_cuda(code: Code, decisions: torch.Tensor, final_metrics: torch.Ten
     """Argmin end state (first wins ties) and traceback over packed
     ``[T, nwords, B]`` int32 decisions.  Returns (bits [T, B] int32,
     winning metric [B] float32)."""
-    if decisions.device.type == "cpu":
+    if _runs_plain(decisions, "traceback_cuda"):
         return traceback_ref(code, decisions, final_metrics)
-    if decisions.device.type != "cuda":
-        raise ValueError(f"traceback_cuda takes CPU or CUDA tensors, "
-                         f"got {decisions.device}")
-    _check_code(code)
-    T, nwords, B = decisions.shape
-    S = code.num_states
-    _check("decisions", decisions, (T, (S + 31) // 32, B), torch.int32, decisions.device)
-    _check("final_metrics", final_metrics, (S, B), torch.float32, decisions.device)
-    bits = torch.empty((T, B), dtype=torch.int32, device=decisions.device)
-    best = torch.empty((B,), dtype=torch.float32, device=decisions.device)
-    with torch.cuda.device(decisions.device):
-        status = _lib().cc_traceback(
-            decisions.data_ptr(), final_metrics.data_ptr(), bits.data_ptr(),
-            best.data_ptr(), T, B, S, code.constraint_length, nwords,
-            torch.cuda.current_stream().cuda_stream)
-    check_status(status, "traceback_cuda")
+    out = _traceback(code, decisions, None, final_metrics, "traceback_cuda")
     traceback_cuda.launches += 1
-    return bits, best
+    return out
 
 
 traceback_cuda.launches = 0

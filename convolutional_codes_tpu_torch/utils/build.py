@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--split-compile=0")   # optimise the template instances in parallel
 
 #: every kernel library of the package
-LIBRARIES = ("viterbi", "fused_chain", "mc_datagen", "stack_mc", "fano_mc")
+LIBRARIES = ("longframe", "fused_chain", "mc_datagen", "stack_mc", "fano_mc",
+             "longframe_mc")
 
 #: wall seconds each library took to build in this process (0 when cached)
 build_seconds = {}

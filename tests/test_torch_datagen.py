@@ -31,6 +31,21 @@ CODES = [0, 5, "wspr-k32", "k9-r12", "k15-r14-16qam"]
 CHANNELS = [("awgn", "soft", 2.0), ("awgn", "hard", 4.0), ("bsc", "soft", 0.05)]
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """Run each test on one intra-op thread.  torch's float32
+    transcendentals on the CPU (MKL vector math) split tensors of more than
+    2048 elements between threads; in about one process in ten the second
+    thread's share came out up to 2e-5 off (300 ulp of the distances)
+    while the first share stayed within 4 ulp of XLA.  A module-level
+    ``set_num_threads`` does not hold: the last test module collected in a
+    process sets the count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("salt", [0, 1, 2, 5])
 def test_coord_bits_and_uniform_match_jax(salt):
     rng = np.random.default_rng(100 + salt)
