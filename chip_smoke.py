@@ -12,11 +12,14 @@ Phases, each of which raises on failure:
      (bit-exact), the fused Monte-Carlo kernel on the BSC golden counters
      and against its plain version (BSC exact, AWGN at most 1% of lanes
      different — log/sqrt/sin/cos differ in the last ulp); the stack and
-     Fano Monte-Carlo kernels on every stack/Fano golden (bit-exact, through
-     their supplied-frames entry) and per lane against their plain versions
-     (BSC exact; AWGN exact on the kernels' own frames, and the lanes that
-     differ on the plain version's frames counted); the streaming ACS and
-     traceback wrappers against their plain versions (bit-exact, soft and
+     Fano decoders of supplied frames on every stack/Fano golden
+     (bit-exact); the stack and Fano Monte-Carlo kernels per lane against
+     their plain versions (exact on the kernels' own frames, the plain
+     datagen's frames equal to them on BSC and the lanes that differ on
+     them counted on AWGN), and the decoders of supplied frames on the same
+     frames, all of them and the first 1000, against the plain machines
+     (bits, metric, iterations, every Fano diagnostic exact); the streaming
+     ACS and traceback wrappers against their plain versions (bit-exact, soft and
      tie-heavy hard, a two-segment traceback through the carry); the
      long-frame Monte-Carlo kernel against its plain version and against a
      decode of the same stream by the streaming kernels (BSC exact, AWGN at
@@ -27,19 +30,24 @@ Phases, each of which raises on failure:
      AWGN stack sweep and the sweep's stack point function at the recorded
      BSC spec; (c) the same for Fano; (d) long frames: BASELINE configs 0
      and 2 through ``streaming_mc_accumulate`` and the exact decode of
-     supplied K=7 frames through ``long_frame_decode_stream``.  Every point
-     with a published BER must pass the clustered z-check (|z| < 4.5),
-     every BSC stack/Fano point must equal its committed record in
+     supplied K=7 frames through ``long_frame_decode_stream``; (e)
+     supplied-frame stack/Fano: the modular chain's code-0 AWGN 8 dB stack
+     and Fano steps at 131,072 frames, and one BSC point of each whose
+     counters must equal the plain machine's on the same frames.  Every
+     point with a published BER must pass the clustered z-check (|z| <
+     4.5), every BSC stack/Fano point must equal its committed record in
      results/ exactly, and the long-frame runs must beat their channels;
   5. throughput at the headline shape (code 0, 8 dB, 2^20 lanes, 16
      in-kernel steps), the sequential kernels at full width (8192 lanes,
      timeout 10000 per bit), the long-frame kernels at configs 0 and 2 and
-     at the real-data decode shapes, and each kernel's time beside its
-     plain version's and its bound.  The long-frame kernels are held
+     at the real-data decode shapes, the decoders of supplied frames at
+     the supplied-frame path's shape and two more, and each kernel's time
+     beside its plain version's and its bound.  The long-frame kernels are held
      against the plain versions that are timed there, at the main path's
      shapes: the Monte-Carlo kernel at configs 0 (exact) and 2 (at most 1%
      of lanes different), the streaming wrappers bit for bit at both
-     decode shapes.
+     decode shapes, the decoders of supplied frames exactly on every frame
+     of each batch, which their plain machines are timed on.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
@@ -73,7 +81,7 @@ LANE_SLOTS_PER_SM, SMS = 128, 132
 #: estimated instructions per walk iteration (not measured: ncu does not
 #: run on the card's machine): the stack's 64-slot best/worst scan at ~5
 #: per slot plus ~30 for the extension; the Fano step's ~40
-INSTR_PER_ITER = {"mc_stack": 350, "mc_fano": 40}
+INSTR_PER_ITER = {"mc_stack": 350, "mc_fano": 40, "stack_decode": 350, "fano_decode": 40}
 
 
 def require(cond, what: str) -> None:
@@ -257,7 +265,8 @@ def check_fused_kernel(torch, dev, stats):
 SEQ_PHASE3 = {  # (code, channel, point, demapper[, timeout_per_bit]); 1024 lanes x 2
     "stack": [(0, "bsc", 0.05, "soft"), (0, "awgn", 6.0, "soft"), (0, "awgn", 5.0, "hard"),
               (5, "awgn", 4.0, "soft"), ("wspr-k32", "awgn", 4.0, "soft"),
-              ("wspr-k32", "bsc", 0.02, "soft"), ("k9-r12", "awgn", 4.0, "soft")],
+              ("wspr-k32", "bsc", 0.02, "soft"), ("k9-r12", "awgn", 4.0, "soft"),
+              ("k15-r14-16qam", "awgn", 8.0, "soft")],
     "fano": [(0, "awgn", 2.0, "soft", 40), (0, "bsc", 0.05, "soft", 60),
              (0, "awgn", 4.0, "hard", 40), (5, "awgn", 3.0, "soft", 50),
              ("wspr-k32", "awgn", 5.0, "soft", 25), ("wspr-k32", "bsc", 0.02, "soft", 30),
@@ -265,14 +274,44 @@ SEQ_PHASE3 = {  # (code, channel, point, demapper[, timeout_per_bit]); 1024 lane
 }
 
 
+def decode_supplied(decoder: str, code, syms, soft: bool, timeout_per_bit: int):
+    """Kernel 9 or 10 on supplied frames: (bits [B, L], the plain machine's
+    other outputs by name).  Not synchronised."""
+    from convolutional_codes_tpu_torch.ops import fano_cuda, stack_cuda
+    if decoder == "fano":
+        return fano_cuda.fano_decode_cuda(code, syms, soft, timeout_per_bit, with_diag=True)
+    bits, metric, iters = stack_cuda.stack_machine_cuda(code, syms, soft)
+    return bits, {"metric": metric, "iters": iters}
+
+
+def decode_plain(decoder: str, code, syms, soft: bool, timeout_per_bit: int):
+    """The plain machine on the same frames, with the same outputs."""
+    from convolutional_codes_tpu_torch.ops import fano, stack
+    if decoder == "fano":
+        return fano.fano_machine(code, syms, soft, timeout_per_bit)
+    bits, metric, iters = stack.stack_machine(code, syms, soft)
+    return bits, {"metric": metric, "iters": iters}
+
+
+def supplied_diff(torch, got, want):
+    """(names of the outputs where kernel 9 or 10 and the plain machine
+    differ, largest absolute difference over all of them)."""
+    pairs = [("bits", got[0], want[0])] + [(k, got[1][k], v) for k, v in want[1].items()]
+    bad = [k for k, a, b in pairs if not torch.equal(a.to(b.dtype), b)]
+    err = max(float((a.double() - b.double()).abs().max()) for _, a, b in pairs)
+    return bad, err
+
+
 def check_sequential_kernels(torch, dev, stats):
-    """Kernels 7-8: every stack/Fano golden through their supplied-frames
-    entry (bit-exact), the frames entry against frames_host, and the
-    Monte-Carlo kernels per lane against their plain versions."""
+    """Kernels 9-10 on every stack/Fano golden (bit-exact); kernels 7-8 per
+    lane against their plain versions, and kernels 9-10 against the plain
+    machines on the same frames (exact)."""
     import glob
     from convolutional_codes_tpu_torch import get_code
-    from convolutional_codes_tpu_torch.ops import fano, fano_mc, mc_datagen, stack, stack_mc
+    from convolutional_codes_tpu_torch.ops import (
+        fano_cuda, fano_mc, mc_datagen, stack_cuda, stack_mc)
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
 
     files = sorted(glob.glob(os.path.join(GOLDENS, "stack_*.npz"))
                    + glob.glob(os.path.join(GOLDENS, "fano_*.npz")))
@@ -280,50 +319,63 @@ def check_sequential_kernels(torch, dev, stats):
         g = np.load(path)
         name = os.path.basename(path)
         code = get_code(0 if "fma" in name else int(name.split("_")[2]))
-        x = torch.as_tensor(g["dists"] if "dists" in g else g["received"], device=dev)
-        decode = stack_mc.stack_decode_cuda if name.startswith("stack") else fano_mc.fano_decode_cuda
-        require(np.array_equal(decode(code, x).cpu().numpy(), g["decoded"]),
-                f"kernel device code on golden {name}")
-    print(f"stack/Fano goldens through kernels 7-8: {len(files)}/{len(files)} files bit-exact "
+        soft = "dists" in g
+        x = torch.as_tensor(g["dists"] if soft else g["received"], device=dev)
+        decode = (stack_cuda.stack_decode_cuda if name.startswith("stack")
+                  else fano_cuda.fano_decode_cuda)
+        out = decode(code, x, soft)
+        torch.cuda.synchronize()
+        require(np.array_equal(out.cpu().numpy(), g["decoded"]), f"kernels 9-10 on golden {name}")
+    print(f"stack/Fano goldens through kernels 9-10: {len(files)}/{len(files)} files bit-exact "
           "(incl. fano_fma_regression.npz)")
 
     for decoder, cases in SEQ_PHASE3.items():
         mc, ref = ((stack_mc.mc_stack, stack_mc.mc_stack_ref) if decoder == "stack"
                    else (fano_mc.mc_fano, fano_mc.mc_fano_ref))
+        kernel = "kernel 9" if decoder == "stack" else "kernel 10"
         for ck, channel, point, demapper, *tpb in cases:
             code = get_code(ck)
             param = float(awgn_sigma(point)) if channel == "awgn" else point
-            kw = {"timeout_per_bit": tpb[0]} if tpb else {}
+            soft, tpb = channel == "awgn", (tpb[0] if tpb else FANO_TIMEOUT)
+            kw = {"timeout_per_bit": tpb} if decoder == "fano" else {}
             lanes, fpl, seed = 1024, 2, 42
-            k = mc(code, lanes, fpl, seed, param, channel, demapper, device=dev, **kw)
-            r = ref(code, lanes, fpl, seed, param, channel, demapper, device=dev, **kw)
-            diff = int((k != r).any(0).sum())
             tag = f"{decoder} kernel vs plain {code.name} {channel}/{demapper}"
-            if channel == "bsc":
-                require(diff == 0, f"{tag}: {diff} lanes differ")
-                stats["mc_" + decoder] = max(stats["mc_" + decoder],
-                                             float((k - r).abs().max()))
-                print(f"{tag}: 0/{lanes} lanes differ (exact), bit errors {int(k[0].sum())}, "
-                      f"iterations {int(k[2].sum())}")
-                continue
-            # AWGN: decode the kernel's own frames with the plain decoder
+            k = mc(code, lanes, fpl, seed, param, channel, demapper, device=dev, **kw)
+            # the kernel's own frames through the plain machine
             gids = torch.arange(lanes * fpl, device=dev)
             bits, syms = mc_datagen.frames_cuda(code, gids, seed, param, channel, demapper)
-            if decoder == "stack":
-                dec, _, iters = stack.stack_machine(code, syms, True)
-            else:
-                dec, diag = fano.fano_machine(code, syms, True, tpb[0])
-                iters = diag["iters"]
+            plain = decode_plain(decoder, code, syms, soft, tpb)
             own = torch.zeros_like(k)
-            stack_mc.count_errors(own, gids // fpl, dec, bits, iters)
+            stack_mc.count_errors(own, gids // fpl, plain[0], bits, plain[1]["iters"])
             own_diff = int((k != own).any(0).sum())
             require(own_diff == 0, f"{tag} on the kernel's own frames: {own_diff} lanes differ")
             stats["mc_" + decoder] = max(stats["mc_" + decoder], float((k - own).abs().max()))
-            fb, _ = mc_datagen.frames_host(code, gids, seed, param, channel, demapper, dev)
+            # kernel 9 or 10 on the same frames, all of them and the first 1000
+            for n in (lanes * fpl, 1000):
+                got = decode_supplied(decoder, code, syms[:n], soft, tpb)
+                torch.cuda.synchronize()
+                bad, err = supplied_diff(torch, got, (plain[0][:n], {
+                    key: v[:n] for key, v in plain[1].items()}))
+                require(not bad, f"{kernel} vs plain {code.name} {channel}/{demapper} "
+                                 f"B={n}: {bad} differ")
+                stats[decoder + "_decode"] = max(stats[decoder + "_decode"], err)
+            fb, fs = mc_datagen.frames_host(code, gids, seed, param, channel, demapper, dev)
             require(torch.equal(fb, bits), f"{tag}: frame bits differ")
+            same9 = (f"{kernel} = plain at B={lanes * fpl} and 1000 (bits, metric, "
+                     f"{'diagnostics, ' if decoder == 'fano' else ''}iterations)")
+            if channel == "bsc":
+                # the plain datagen's frames are the kernel's: own is the plain version's count
+                require(torch.equal(fs, syms), f"{tag}: BSC frames differ")
+                print(f"{tag}: 0/{lanes} lanes differ (exact), bit errors {int(k[0].sum())}, "
+                      f"iterations {int(k[2].sum())}; {same9}")
+                continue
+            # the plain version on its own datagen's frames (its log/sqrt/sin/cos
+            # may differ from the kernels' in the last ulp: lanes counted)
+            r = ref(code, lanes, fpl, seed, param, channel, demapper, device=dev, **kw)
+            diff = int((k != r).any(0).sum())
             print(f"{tag}: 0/{lanes} lanes differ on the kernel's own frames (exact); "
                   f"{diff}/{lanes} lanes differ on the plain datagen's frames; "
-                  f"bit errors {int(k[0].sum())} vs {int(r[0].sum())}")
+                  f"bit errors {int(k[0].sum())} vs {int(r[0].sum())}; {same9}")
 
 
 LONGFRAME_CASES = [  # tests/test_fused_longframe.py:41-51: (code, channel, point, demapper)
@@ -556,6 +608,62 @@ def run_longframe_path(torch, dev):
         require(bad <= B // 20, f"decode of [{B}, {T}] frames: {bad} frames with errors")
 
 
+#: the supplied-frame path's shape (bench.py:211-227,427, the
+#: awgn_stack_k3_soft_pool row): code 0, AWGN soft 8 dB, frames per step
+SUPPLIED_FRAMES = 131072
+#: (decoder, chain steps) at that shape
+SUPPLIED_AWGN = (("stack", 2), ("fano", 1))
+#: one BSC point per decoder: crossover, frames, Fano budget per bit (small
+#: enough for the plain machine's walk on timed-out frames)
+SUPPLIED_BSC = (0.05, 16384, 60)
+
+
+def run_supplied_path(torch, dev):
+    """The modular chain's stack and Fano steps on supplied symbols (kernels
+    9-10): code 0 AWGN 8 dB at SUPPLIED_FRAMES frames per step under
+    ``sharded_accumulate`` (returned for the z-check), then one BSC point per
+    decoder whose counters must equal the plain machine's on the same
+    frames, regenerated from the same seed by the chain's ``chain_frames``."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
+    from convolutional_codes_tpu_torch.parallel.montecarlo import sharded_accumulate
+    from convolutional_codes_tpu_torch.sim.chain import chain_frames, make_point_step
+    from convolutional_codes_tpu_torch.sim.sweep import PointRecord
+
+    code = get_code(0)
+    L, sigma = code.block_length, float(awgn_sigma(8.0))
+    results = []
+    for decoder, nsteps in SUPPLIED_AWGN:
+        step = make_point_step(code, "awgn", decoder, frames=SUPPLIED_FRAMES, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(61)
+        t0 = time.time()
+        be, fe, nb = sharded_accumulate(step, nsteps, gen, sigma)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        results.append((decoder, PointRecord(
+            code=code.name, channel="awgn", decoder=decoder, demapper="soft", point=8.0,
+            param=sigma, bits=nb, bit_errors=be, frame_errors=fe, frames=nb // L,
+            ber=be / nb, fer=fe / (nb // L), wall_s=wall, bits_per_s=nb / wall)))
+
+    p, B, tpb_fano = SUPPLIED_BSC
+    for decoder in ("stack", "fano"):
+        tpb = tpb_fano if decoder == "fano" else FANO_TIMEOUT
+        step = make_point_step(code, "bsc", decoder, frames=B, timeout_per_bit=tpb, device=dev)
+        be, fe, _ = step(torch.Generator(device=dev).manual_seed(62), p)
+        be, fe = int(be), int(fe)
+        bits, rx = chain_frames(code, "bsc", B, torch.Generator(device=dev).manual_seed(62), p)
+        dec = decode_plain(decoder, code, rx, False, tpb)[0]
+        errs = dec != bits
+        want = (int(errs.sum()), int(errs.any(1).sum()))
+        budget = f", timeout {tpb} per bit" if decoder == "fano" else ""
+        print(f"  bsc {decoder} p={p:g} ({B} frames{budget}): kernel bit_errors={be} "
+              f"frame_errors={fe}, plain machine on the same frames {want[0]} {want[1]}: "
+              f"{'equal' if (be, fe) == want else 'DIFFERENT'}")
+        require((be, fe) == want, f"bsc {decoder} chain step: kernel counters differ from plain")
+    return results
+
+
 def check_points(results, gold, row="ber_coded_a"):
     for channel, r in results:
         z = z_score(r, channel, row, gold)
@@ -640,6 +748,13 @@ SEQ_RATES = [("stack", "k9-r12", 4.0), ("stack", "k9-r12", 8.0),
              ("stack", 0, 0.0), ("fano", 0, 0.0)]
 
 
+def warp_divergence(iters) -> float:
+    """Sum over warps of 32 lanes of 32 times the warp's largest lane
+    iteration count, over the sum of iterations (1 when every lane of a warp
+    walks as long); ``iters`` holds a multiple of 32 lanes."""
+    return float(iters.view(-1, 32).amax(dim=1).sum()) * 32 / float(iters.sum())
+
+
 def iteration_bound_ms(name: str, iters, clock: float) -> float:
     """Least time for ``iters`` walk iterations at the card's instruction rate."""
     return float(iters.sum()) * INSTR_PER_ITER[name] / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3
@@ -671,7 +786,7 @@ def measure_sequential(torch, dev, card, clock):
         bits = lanes * fpl * code.block_length
         rate = bits / ms * 1e3
         iters = out[2]
-        div = float(iters.view(-1, 32).amax(dim=1).sum()) * 32 / float(iters.sum())
+        div = warp_divergence(iters)
         if decoder == "fano" and snr < 4.0:
             # timeout-bound: every frame walks 10000 * T SEARCH steps, which
             # the lockstep plain machine would take minutes over
@@ -706,6 +821,73 @@ def measure_sequential(torch, dev, card, clock):
         print(f"{name} [{card}]: code 0 AWGN 8 dB, 256 lanes x 1 frame: kernel "
               f"{times[name]:.4f} ms, plain {plain[name]:.4f} ms, bound {bound[name][0]:.4f} ms "
               f"({int(out[2].sum())} iterations x {INSTR_PER_ITER[name]} instructions)")
+    return times, plain, bound
+
+
+#: kernels 9-10 in phase 5, AWGN soft 8 dB: (decoder, code, frames); the
+#: first row of each decoder is the supplied-frame path's shape
+SUPPLIED_RATES = (("stack", 0, SUPPLIED_FRAMES), ("fano", 0, SUPPLIED_FRAMES),
+                  ("stack", "k9-r12", SUPPLIED_FRAMES), ("fano", "k15-r14-16qam", 16384))
+
+
+def measure_supplied(torch, dev, card, clock, stats):
+    """Kernels 9-10 at SUPPLIED_RATES' shapes on the modular chain's frames:
+    kernel time (CUDA events), decode-only and chain info bits/s, BER,
+    iterations, warp divergence and the bound; the plain machine on the
+    same whole batch, timed and held exactly against the kernel."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
+    from convolutional_codes_tpu_torch.sim.chain import chain_frames, make_point_step
+
+    times, plain, bound = {}, {}, {}
+    slots = SMS * LANE_SLOTS_PER_SM * clock
+    sigma = float(awgn_sigma(8.0))
+    for n, (decoder, ck, B) in enumerate(SUPPLIED_RATES):
+        code, name = get_code(ck), decoder + "_decode"
+        T, M, L = code.num_block_symbols, code.points_per_symbol, code.block_length
+        bits, d = chain_frames(code, "awgn", B, torch.Generator(device=dev).manual_seed(70 + n),
+                               sigma)
+        run = lambda x: decode_supplied(decoder, code, x, True, FANO_TIMEOUT)
+        run(d)
+        torch.cuda.synchronize()
+        got, ms = cuda_call(lambda: run(d))
+        iters = got[1]["iters"]
+        ber = float((got[0] != bits).sum()) / bits.numel()
+        step = make_point_step(code, "awgn", decoder, frames=B, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(90 + n)
+        step(gen, sigma)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        chain_bits = step(gen, sigma)[2]
+        torch.cuda.synchronize()
+        chain_s = time.time() - t0
+        # bytes: the distances read once; bits, metric, iterations (and the
+        # Fano timeout_left and depth) written once
+        out_bytes = L * 4 + 4 + 8 + (8 if decoder == "fano" else 0)
+        bytes_ms = B * (T * M * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = float(iters.sum()) * INSTR_PER_ITER[name] / slots * 1e3
+        b_ms = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+        t0 = time.time()
+        want = decode_plain(decoder, code, d, True, FANO_TIMEOUT)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        bad, err = supplied_diff(torch, got, want)
+        require(not bad, f"{name} vs plain at {code.name} B={B}: {bad} differ")
+        stats[name] = max(stats[name], err)
+        print(f"{name} [{card}]: {code.name} AWGN soft 8 dB, B={B}: kernel {ms:.3f} ms per "
+              f"launch, decode {B * L / ms * 1e3:.6e} info bits/s, chain "
+              f"{chain_bits / chain_s:.6e} "
+              f"info bits/s ({chain_s * 1e3:.1f} ms per step), BER {ber:.6e}, iterations "
+              f"{int(iters.sum())} (max lane {int(iters.max())}, median "
+              f"{float(iters.double().median()):.0f}, warp divergence "
+              f"{warp_divergence(iters):.3f}), bound {b_ms[0]:.4f} ms ({b_ms[1]}; operations "
+              f"{ops_ms:.4f} ms at {INSTR_PER_ITER[name]} instr./iteration est., bytes "
+              f"{bytes_ms:.4f} ms); plain machine on the same {B} frames: {plain_ms:.1f} ms, "
+              f"outputs equal")
+        if name not in times:
+            times[name], plain[name], bound[name] = ms, plain_ms, b_ms
+        del got, d, bits
     return times, plain, bound
 
 
@@ -848,7 +1030,7 @@ def main() -> int:
         except ImportError as e:
             print(f"triton does not import: {e}")
 
-    from convolutional_codes_tpu_torch.ops import fano_mc, stack_mc
+    from convolutional_codes_tpu_torch.ops import fano_cuda, fano_mc, stack_cuda, stack_mc
     from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
     from convolutional_codes_tpu_torch.ops import fused_chain as fc
     from convolutional_codes_tpu_torch.ops import fused_longframe as fl
@@ -864,7 +1046,9 @@ def main() -> int:
                 "mc_chain": fc.mc_chain_viterbi, "mc_stack": stack_mc.mc_stack,
                 "mc_fano": fano_mc.mc_fano, "stream_acs": lc.stream_acs_cuda,
                 "stream_traceback": lc.stream_traceback_cuda,
-                "mc_longframe": fl.mc_longframe_viterbi}
+                "mc_longframe": fl.mc_longframe_viterbi,
+                "stack_decode": stack_cuda.stack_machine_cuda,
+                "fano_decode": fano_cuda.fano_decode_cuda}
     stats = {k: 0.0 for k in wrappers}
     with phase("3 kernels against their plain versions"):
         check_viterbi_kernels(torch, dev, stats)
@@ -878,18 +1062,23 @@ def main() -> int:
 
     with open(os.path.join(GOLDENS, "published_curves.json")) as f:
         gold = json.load(f)
-    paths = {  # path -> (the kernels it must launch, how to drive it)
+    paths = {  # path -> (the kernels it must launch, how to drive it, kernels it must not)
         "viterbi": (("acs_forward", "traceback", "mc_chain"),
-                    lambda tmp: check_points(run_main_path(torch, dev, gold, tmp), gold)),
+                    lambda tmp: check_points(run_main_path(torch, dev, gold, tmp), gold), ()),
         "stack": (("mc_stack",), lambda tmp: check_points(run_sequential_path(
-            torch, dev, tmp, "stack", "0.01", range(10, 17)), gold, "ber_coded_a_stack")),
+            torch, dev, tmp, "stack", "0.01", range(10, 17)), gold, "ber_coded_a_stack"), ()),
         "fano": (("mc_fano",), lambda tmp: check_points(run_sequential_path(
-            torch, dev, tmp, "fano", "0.01", range(10, 14)), gold, "ber_coded_a_fano")),
+            torch, dev, tmp, "fano", "0.01", range(10, 14)), gold, "ber_coded_a_fano"), ()),
         "long frames": (("mc_longframe", "stream_acs", "stream_traceback"),
-                        lambda tmp: run_longframe_path(torch, dev)),
+                        lambda tmp: run_longframe_path(torch, dev), ()),
+        "supplied-frame stack/Fano": (
+            ("stack_decode", "fano_decode"),
+            lambda tmp: [check_points([("awgn", r)], gold, f"ber_coded_a_{d}")
+                         for d, r in run_supplied_path(torch, dev)],
+            ("mc_stack", "mc_fano")),
     }
     launches = {}
-    for path, (kernels, drive) in paths.items():
+    for path, (kernels, drive, absent) in paths.items():
         with phase(f"4 main path: {path}"), tempfile.TemporaryDirectory() as tmp:
             for w in wrappers.values():
                 w.launches = 0
@@ -900,13 +1089,16 @@ def main() -> int:
             for k in kernels:
                 require(counts[k] > 0, f"kernel {k} was not launched on the {path} path")
                 launches[k] = counts[k]
+            for k in absent:
+                require(counts[k] == 0, f"kernel {k} was launched on the {path} path")
 
     with phase("5 throughput"):
         card, clock = card_line(), sm_clock_hz()
         print(f"max SM clock {clock / 1e6:.0f} MHz")
         times, plain, bound = measure(torch, dev, card, clock)
         for measured in (measure_sequential(torch, dev, card, clock),
-                         measure_longframe(torch, dev, card, clock, stats)):
+                         measure_longframe(torch, dev, card, clock, stats),
+                         measure_supplied(torch, dev, card, clock, stats)):
             for d in zip((times, plain, bound), measured):
                 d[0].update(d[1])
 
@@ -921,7 +1113,9 @@ def main() -> int:
                "mc_fano": ("fano_mc.cu", "fano_mc.py:65"),
                "stream_acs": ("longframe.cu", "longframe_pallas.py:142"),
                "stream_traceback": ("longframe.cu", "longframe_pallas.py:218"),
-               "mc_longframe": ("longframe_mc.cu", "fused_longframe.py:84")}
+               "mc_longframe": ("longframe_mc.cu", "fused_longframe.py:84"),
+               "stack_decode": ("stack_mc.cu", "stack_pallas.py:86"),
+               "fano_decode": ("fano_mc.cu", "fano_pallas.py:52")}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"convolutional_codes_tpu_torch/csrc/{sources[k][0]}",
                 "replaces": f"convolutional_codes_tpu/ops/{sources[k][1]}",

@@ -1,6 +1,7 @@
-// Device code shared by the sequential Monte-Carlo kernels (stack_mc.cu,
-// fano_mc.cu) and the frames entry (mc_datagen.cu): the coordinate hash,
-// the encoder branch with the compat quirk, and the per-frame datagen.
+// Device code shared by the sequential kernels (stack_mc.cu, fano_mc.cu:
+// the Monte-Carlo kernels and the decoders of supplied frames) and the
+// frames entry (mc_datagen.cu): the coordinate hash, the encoder branch
+// with the compat quirk, the per-frame datagen and the branch metric.
 //
 // The hash is the JAX package's coord_bits / coord_uniform
 // (ops/fused_longframe.py:56-81) and the datagen its ops/mc_datagen.py
@@ -64,6 +65,26 @@ static inline int fill_seq_params(SeqParams* p, unsigned seed, float param, int 
   p->M = M;
   p->soft = soft;
   p->snap = snap;
+  return 0;
+}
+
+// Decoder constants for frames the caller supplies (no datagen, one frame
+// per lane).  Returns 0, or cudaErrorInvalidValue.
+static inline int fill_supplied_params(SeqDecoderParams* p, int soft, int K, int L, int T,
+                                       int symlen, const unsigned* polys, unsigned qmask,
+                                       float weight, int correct, int wrong, int timeout,
+                                       int lanes) {
+  static const float no_points[2 * CC_SEQ_MAX_POINTS] = {};
+  const int bad = fill_seq_params(&p->s, 0u, 0.0f, soft, 0, K, L, T, symlen, no_points, polys,
+                                  qmask, 0.0f);
+  if (bad) return bad;
+  if (lanes <= 0 || timeout < 0) return (int)cudaErrorInvalidValue;
+  p->weight = weight;
+  p->correct = correct;
+  p->wrong = wrong;
+  p->timeout = timeout;
+  p->lanes = lanes;
+  p->fpl = 1;
   return 0;
 }
 

@@ -40,14 +40,10 @@ import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.sequential_common import (
-    hard_transition_metrics, make_branch_fn, soft_transition_metrics)
+    hard_transition_metrics, make_branch_fn, run_lockstep, soft_transition_metrics)
 
 FANO_TIMEOUT = 10000   # SEARCH steps per decoded bit (fano-decoder.c:14)
 FANO_DELTA = 17.0      # threshold step (fano-decoder.c:15)
-
-#: micro-steps between all-done checks (a done frame's micro-step is a
-#: no-op, so overrunning is free and saves a host sync per step)
-_CHECK_EVERY = 8
 
 
 def fano_machine(code: Code, symbols: torch.Tensor, soft: bool,
@@ -99,15 +95,16 @@ def fano_machine(code: Code, symbols: torch.Tensor, soft: bool,
     def put(arr, idx, val, mask):
         arr[ar, idx] = torch.where(mask, val, arr[ar, idx])
 
-    step = 0
-    while step % _CHECK_EVERY or not bool(done.all()):
-        step += 1
-        iters += (~done).to(torch.int64)
+    def update(arr, mask, val):
+        arr.copy_(torch.where(mask, val, arr))
+
+    def micro_step():
+        iters.add_((~done).to(torch.int64))
         # ---- SEARCH step (fano-decoder.c:183-236)
         search = ~backtrack & ~done
         exhausted = search & (timeout == 0)
         act = search & ~exhausted
-        timeout = torch.where(act, timeout - 1, timeout)
+        update(timeout, act, timeout - 1)
         sel = selected[ar, cur]
         m_cur = nmetric[ar, cur]
         ms = m_cur + torch.where(sel == 0, tm0[ar, cur], tm1[ar, cur])
@@ -117,12 +114,12 @@ def fano_machine(code: Code, symbols: torch.Tensor, soft: bool,
         k = torch.floor((ms - thr) / delta).to(torch.int64)
         k = torch.where(ms >= thr + (k + 1).to(torch.float32) * delta, k + 1, k)
         k = torch.where(ms < thr + k.to(torch.float32) * delta, k - 1, k)
-        thr = torch.where(gate, thr + k.clamp(min=0).to(torch.float32) * delta, thr)
+        update(thr, gate, thr + k.clamp(min=0).to(torch.float32) * delta)
         # forward move, and the branch data of the node entered
         finished = fwd & (cur + 1 == T)
         step_fwd = fwd & ~finished
         ssel = torch.where(sel == 0, succ0[ar, cur], succ1[ar, cur])
-        cur = torch.where(step_fwd, cur + 1, cur)
+        update(cur, step_fwd, cur + 1)
         put(nstate, cur, ssel, step_fwd)
         put(nmetric, cur, ms, step_fwd)
         b0, b1, bt0, bt1, bdec = node_metrics(nstate[ar, cur], cur)
@@ -132,23 +129,24 @@ def fano_machine(code: Code, symbols: torch.Tensor, soft: bool,
         put(tm1, cur, bt1, step_fwd)
         put(decoded, cur, bdec, step_fwd)
         put(selected, cur, torch.zeros_like(bdec), step_fwd)
-        backtrack = backtrack | (act & ~fwd)
+        backtrack.bitwise_or_(act & ~fwd)
         # ---- BACKTRACK step (fano-decoder.c:237-264), chained
         back = backtrack & ~done
         pm = nmetric[ar, (cur - 1).clamp(min=0)]
         can_back = back & (cur > 0) & (pm >= thr)
         relax = back & ~can_back
-        thr = torch.where(relax, thr - delta, thr)
+        update(thr, relax, thr - delta)
         flip = relax & (selected[ar, cur] != 0)
         put(decoded, cur, decoded[ar, cur] ^ 1, flip)
         put(selected, cur, torch.zeros_like(sel), flip)
-        cur = torch.where(can_back, cur - 1, cur)
+        update(cur, can_back, cur - 1)
         take_second = can_back & (selected[ar, cur] == 0)
         put(decoded, cur, decoded[ar, cur] ^ 1, take_second)
         put(selected, cur, torch.ones_like(sel), take_second)
-        backtrack = backtrack & ~(relax | take_second)
-        done = done | finished | exhausted
+        backtrack.bitwise_and_(~(relax | take_second))
+        done.bitwise_or_(finished | exhausted)
 
+    run_lockstep(micro_step, done)
     diag = {"metric": nmetric[ar, cur], "timeout_left": timeout, "depth": cur,
             "timed_out": timeout == 0, "iters": iters}
     return decoded[:, :code.block_length].to(torch.int32), diag

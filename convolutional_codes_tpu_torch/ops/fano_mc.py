@@ -26,7 +26,7 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_machine
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
-from convolutional_codes_tpu_torch.ops.stack_mc import count_errors, supplied_frames
+from convolutional_codes_tpu_torch.ops.stack_mc import count_errors
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
 #: frames the plain machine decodes per pass
@@ -65,32 +65,30 @@ def _lib():
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.cc_fano_scratch_words.argtypes = [I, I]
     lib.cc_fano_scratch_words.restype = ctypes.c_longlong
-    lib.cc_mc_fano.argtypes = [P, P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F,
-                               F, I, I, I, P]
+    lib.cc_mc_fano.argtypes = [P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
+                               I, I, P]
     lib.cc_mc_fano.restype = I
     return lib
 
 
 def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
-            demapper: str, timeout_per_bit: int, device, syms=None, dec=None
-            ) -> torch.Tensor:
+            demapper: str, timeout_per_bit: int, device) -> torch.Tensor:
     lib = _lib()
     T, M = code.num_block_symbols, code.points_per_symbol
     soft = channel == "awgn"
-    if syms is None:
-        syms = torch.empty((T, M, lanes) if soft else (T, lanes),
-                           dtype=torch.float32 if soft else torch.int32, device=device)
+    syms = torch.empty((T, M, lanes) if soft else (T, lanes),
+                       dtype=torch.float32 if soft else torch.int32, device=device)
     scratch = torch.empty(lib.cc_fano_scratch_words(T, lanes), dtype=torch.int32,
                           device=device)
     out = torch.empty((3, lanes), dtype=torch.int64, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
     with torch.cuda.device(device):
         status = lib.cc_mc_fano(
-            out.data_ptr(), scratch.data_ptr(), syms.data_ptr(),
-            None if dec is None else dec.data_ptr(), lanes, fpl, int(seed) & 0x7FFFFFFF,
-            float(param), int(soft), int(demapper == "hard"), code.constraint_length,
-            code.block_length, T, code.symlen_out, points.ctypes.data, polys.ctypes.data,
-            qmask, inv_nd, float(code.fano_metric_weight), int(code.fano_bit_metrics[0]),
+            out.data_ptr(), scratch.data_ptr(), syms.data_ptr(), lanes, fpl,
+            int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
+            code.constraint_length, code.block_length, T, code.symlen_out,
+            points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
+            float(code.fano_metric_weight), int(code.fano_bit_metrics[0]),
             int(code.fano_bit_metrics[1]), _timeout(code, timeout_per_bit),
             torch.cuda.current_stream().cuda_stream)
     check_status(status, "fano_mc")
@@ -125,16 +123,3 @@ def mc_fano(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
 
 
 mc_fano.launches = 0
-
-
-def fano_decode_cuda(code: Code, symbols: torch.Tensor,
-                     timeout_per_bit: int = FANO_TIMEOUT) -> torch.Tensor:
-    """Decode supplied frames (``[B, T, 2^m]`` float32 distances or
-    ``[B, T]`` int received symbols, on a CUDA device) with kernel 8's device
-    code, one frame per lane; returns ``[B, block_length]`` int32 bits.  A
-    check entry (goldens on the card): it does not count as a launch of
-    :func:`mc_fano`."""
-    channel, syms, dec = supplied_frames(code, symbols)
-    _launch(code, dec.shape[1], 1, 0, 0.0, channel, "soft", timeout_per_bit,
-            symbols.device, syms, dec)
-    return dec.T

@@ -13,6 +13,9 @@ soft metric is ``1 + fl(w * d)``.  Eager PyTorch runs ``w * d`` and
 ``1 + _`` as two operations and never contracts them into an FMA, so the
 reference's ``force_rounded`` guard (against XLA-CPU's contraction) is the
 identity here and is left out.
+
+The machines advance every frame of a batch by one micro-step at a time
+(:func:`run_lockstep`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,48 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.utils.bitops import parity32, popcount32
+
+#: micro-steps between all-done checks (a done frame's micro-step is a
+#: no-op, so overrunning is free and saves a host sync per step)
+CHECK_EVERY = 8
+
+
+def run_lockstep(micro_step: Callable[[], None], done: torch.Tensor) -> None:
+    """Run a lockstep machine until every frame of ``done`` [B] is done,
+    checking every CHECK_EVERY micro-steps.  ``micro_step`` updates the
+    machine's tensors in place and leaves a done frame unchanged.
+
+    On a CUDA device the first CHECK_EVERY micro-steps run eagerly (the
+    warm-up of ``torch.cuda.graphs``' recipe) and the next CHECK_EVERY are
+    captured into one CUDA graph, which is replayed until every frame is
+    done: the same PyTorch operations on the same tensors, without the
+    host's launch cost per operation, which sets the lockstep machines'
+    pace on the card."""
+    if bool(done.all()):
+        return
+    if done.device.type != "cuda":
+        while True:
+            for _ in range(CHECK_EVERY):
+                micro_step()
+            if bool(done.all()):
+                return
+    with torch.cuda.device(done.device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(CHECK_EVERY):
+                micro_step()
+        torch.cuda.current_stream().wait_stream(side)
+        if bool(done.all()):
+            return
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(CHECK_EVERY):
+                micro_step()
+        while True:
+            graph.replay()
+            if bool(done.all()):
+                return
 
 
 def make_branch_fn(code: Code) -> Callable[[torch.Tensor, int],

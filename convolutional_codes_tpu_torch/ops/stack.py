@@ -41,15 +41,11 @@ import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.sequential_common import (
-    hard_transition_metrics, make_branch_fn, soft_transition_metrics)
+    hard_transition_metrics, make_branch_fn, run_lockstep, soft_transition_metrics)
 
 STACK_DEPTH = 64
 
 _BIG = 3e38
-
-#: micro-steps between all-done checks (a done frame's micro-step is a
-#: no-op, so overrunning is free and saves a host sync per step)
-_CHECK_EVERY = 8
 
 
 def _first_where(pred: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -67,6 +63,7 @@ def stack_machine(code: Code, symbols: torch.Tensor, soft: bool
     branch = make_branch_fn(code)
     ar = torch.arange(B, device=dev)
     slot = torch.arange(D, device=dev)[None, :]
+    one = torch.ones(B, dtype=torch.uint8, device=dev)   # a device value, so a CUDA graph can capture the store
     if not soft:
         symbols = symbols.to(torch.int64)
 
@@ -83,18 +80,16 @@ def stack_machine(code: Code, symbols: torch.Tensor, soft: bool
         mbest = torch.where(live, metric, -_BIG).amax(dim=1, keepdim=True)
         return _first_where(live & (metric == mbest), slot)
 
-    step = 0
-    while step % _CHECK_EVERY or not bool(done.all()):
-        step += 1
-        iters += (~done).to(torch.int64)
+    def micro_step():
+        iters.add_((~done).to(torch.int64))
         live = slot < nstack[:, None]
         cur = best_of(metric, live)
         cur_nii = nii[ar, cur]
         caught = cur_nii == widx
         finished = caught & (widx == T)
         advance = caught & (widx < T) & ~done
-        widx = torch.where(advance, widx + 1, widx)
-        done = done | finished
+        widx.copy_(torch.where(advance, widx + 1, widx))
+        done.bitwise_or_(finished)
         ext = (~caught | advance) & ~done
 
         s, m = state[ar, cur], metric[ar, cur]
@@ -115,7 +110,7 @@ def stack_machine(code: Code, symbols: torch.Tensor, soft: bool
 
         # the duplicate (input 1) first, from the original's fields
         row1 = bits[ar, cur]
-        row1[ar, t] = 1
+        row1[ar, t] = one
         bits[ar, new] = torch.where(newonly[:, None], row1, bits[ar, new])
         nii[ar, new] = torch.where(newonly, cur_nii + 1, nii[ar, new])
         state[ar, new] = torch.where(newonly, ns1, state[ar, new])
@@ -124,8 +119,9 @@ def stack_machine(code: Code, symbols: torch.Tensor, soft: bool
         nii[ar, cur] = torch.where(ext, cur_nii + 1, nii[ar, cur])
         state[ar, cur] = torch.where(ext, ns0, state[ar, cur])
         metric[ar, cur] = torch.where(ext, m + tm0, metric[ar, cur])
-        nstack = torch.where(ext & ~at_cap, nstack + 1, nstack)
+        nstack.copy_(torch.where(ext & ~at_cap, nstack + 1, nstack))
 
+    run_lockstep(micro_step, done)
     cur = best_of(metric, slot < nstack[:, None])
     return (bits[ar, cur, :code.block_length].to(torch.int32), metric[ar, cur], iters)
 

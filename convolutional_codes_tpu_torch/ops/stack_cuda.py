@@ -1,0 +1,116 @@
+"""Stack decoding of supplied frames on the card: the CUDA kernel of
+``csrc/stack_mc.cu`` (``stack_decode_kernel``).
+
+It replaces the TPU kernel ``_stack_kernel`` (stack_pallas.py:86) behind
+``stack_decode_pallas`` (:338) and returns what that returns: ``[B,
+block_length]`` int32 bits and, with ``with_metric``, the winning path
+metric per frame (float32 soft, int32 hard, stack_pallas.py:334).  One
+thread walks one frame with the serial 64-path stack search that the
+Monte-Carlo kernel (``ops/stack_mc.py``) also runs, so bits, metric and
+iterations equal the plain machine's (:func:`ops.stack.stack_machine`)
+exactly.  The TPU entry's tile and watchdog arguments (``block_lanes``,
+``iters_per_call``, ``iters_first``, ``max_calls``, ``interpret``) have no
+counterpart: one launch runs every walk to its end.
+
+The wrappers take CUDA tensors only and raise ``ValueError`` otherwise;
+the plain machine is the CPU's decoder (``sim/chain.py`` picks by device).
+Launches are counted in ``stack_machine_cuda.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from convolutional_codes_tpu_torch.models.codebook import Code
+from convolutional_codes_tpu_torch.models.tables import code_tables
+from convolutional_codes_tpu_torch.utils.build import check_status, load_library
+
+#: the device walks take up to this many coded bits per symbol
+#: (``CC_SEQ_MAX_SYMLEN`` in ``csrc/sequential.cuh``)
+MAX_SYMLEN = 4
+
+
+def supplied_frames(code: Code, symbols: torch.Tensor, soft: bool) -> torch.Tensor:
+    """Check supplied frames and lay them out as the sequential kernels read
+    them (the counterpart of stack_pallas.py:287 ``pack_syms``): ``soft``
+    ``[B, T, 2^m]`` distances → ``[T, 2^m, B]`` float32, hard ``[B, T]``
+    symbols → ``[T, B]`` int32.  ``soft`` decides the layout and the cast,
+    not the dtype."""
+    if code.symlen_out > MAX_SYMLEN:
+        raise ValueError(f"the kernels take symlen_out <= {MAX_SYMLEN}; "
+                         f"{code.name} has {code.symlen_out}")
+    T, M = code.num_block_symbols, code.points_per_symbol
+    want = (T, M) if soft else (T,)
+    if symbols.dim() != 1 + len(want) or tuple(symbols.shape[1:]) != want \
+            or symbols.shape[0] < 1:
+        raise ValueError(f"{code.name} {'soft' if soft else 'hard'} frames must be [B >= 1, "
+                         f"{', '.join(map(str, want))}], got {tuple(symbols.shape)}")
+    if symbols.device.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {symbols.device}")
+    if soft:
+        return symbols.to(torch.float32).permute(1, 2, 0).contiguous()
+    return symbols.to(torch.int32).T.contiguous()
+
+
+def code_args(code: Code):
+    """(K, L, T, symlen, polys [symlen] uint32 host array, quirk mask): the
+    code's arguments of a C decode entry."""
+    tables = code_tables(code)
+    polys = np.asarray(tables.polynomials, dtype=np.uint32)
+    return (code.constraint_length, code.block_length, code.num_block_symbols,
+            code.symlen_out, polys, tables.quirk_mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = load_library("stack_mc")
+    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.cc_stack_scratch_words.argtypes = [I, I]
+    lib.cc_stack_scratch_words.restype = ctypes.c_longlong
+    lib.cc_stack_decode.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, P]
+    lib.cc_stack_decode.restype = I
+    return lib
+
+
+def stack_machine_cuda(code: Code, symbols: torch.Tensor, soft: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's twin of :func:`ops.stack.stack_machine`: decode ``[B, T,
+    2^m]`` distances (soft) or ``[B, T]`` received symbols (hard) on their
+    CUDA device.  Returns (bits [B, block_length] int32, winning path metric
+    [B] float32, walk iterations [B] int64)."""
+    syms = supplied_frames(code, symbols, soft)
+    lib = _lib()
+    B, dev = symbols.shape[0], symbols.device
+    K, L, T, symlen, polys, qmask = code_args(code)
+    bits = torch.empty((L, B), dtype=torch.int32, device=dev)
+    metric = torch.empty(B, dtype=torch.float32, device=dev)
+    iters = torch.empty(B, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.cc_stack_scratch_words(T, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.cc_stack_decode(
+            bits.data_ptr(), metric.data_ptr(), iters.data_ptr(), scratch.data_ptr(),
+            syms.data_ptr(), B, int(soft), K, L, T, symlen, polys.ctypes.data, qmask,
+            float(code.metric_weight), int(code.bit_metrics[0]), int(code.bit_metrics[1]),
+            torch.cuda.current_stream().cuda_stream)
+    check_status(status, "stack_decode")
+    stack_machine_cuda.launches += 1
+    return bits.T, metric, iters
+
+
+stack_machine_cuda.launches = 0
+
+
+def stack_decode_cuda(code: Code, symbols: torch.Tensor, soft: bool,
+                      with_metric: bool = False):
+    """Stack decode of supplied frames on the card, as
+    ``stack_decode_pallas``: ``[B, block_length]`` int32 bits, and with
+    ``with_metric`` the winning metric [B] (float32 soft, int32 hard)."""
+    bits, metric, _ = stack_machine_cuda(code, symbols, soft)
+    if not with_metric:
+        return bits
+    return bits, (metric if soft else metric.to(torch.int32))

@@ -71,31 +71,30 @@ def _lib():
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.cc_stack_scratch_words.argtypes = [I, I]
     lib.cc_stack_scratch_words.restype = ctypes.c_longlong
-    lib.cc_mc_stack.argtypes = [P, P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F,
-                                F, I, I, P]
+    lib.cc_mc_stack.argtypes = [P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
+                                I, P]
     lib.cc_mc_stack.restype = I
     return lib
 
 
 def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
-            demapper: str, device, syms=None, dec=None) -> torch.Tensor:
+            demapper: str, device) -> torch.Tensor:
     lib = _lib()
     T, M = code.num_block_symbols, code.points_per_symbol
     soft = channel == "awgn"
-    if syms is None:
-        syms = torch.empty((T, M, lanes) if soft else (T, lanes),
-                           dtype=torch.float32 if soft else torch.int32, device=device)
+    syms = torch.empty((T, M, lanes) if soft else (T, lanes),
+                       dtype=torch.float32 if soft else torch.int32, device=device)
     scratch = torch.empty(lib.cc_stack_scratch_words(T, lanes), dtype=torch.int32,
                           device=device)
     out = torch.empty((3, lanes), dtype=torch.int64, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
     with torch.cuda.device(device):
         status = lib.cc_mc_stack(
-            out.data_ptr(), scratch.data_ptr(), syms.data_ptr(),
-            None if dec is None else dec.data_ptr(), lanes, fpl, int(seed) & 0x7FFFFFFF,
-            float(param), int(soft), int(demapper == "hard"), code.constraint_length,
-            code.block_length, T, code.symlen_out, points.ctypes.data, polys.ctypes.data,
-            qmask, inv_nd, float(code.metric_weight), int(code.bit_metrics[0]),
+            out.data_ptr(), scratch.data_ptr(), syms.data_ptr(), lanes, fpl,
+            int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
+            code.constraint_length, code.block_length, T, code.symlen_out,
+            points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
+            float(code.metric_weight), int(code.bit_metrics[0]),
             int(code.bit_metrics[1]), torch.cuda.current_stream().cuda_stream)
     check_status(status, "stack_mc")
     return out
@@ -127,33 +126,3 @@ def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
 
 
 mc_stack.launches = 0
-
-
-def supplied_frames(code: Code, symbols: torch.Tensor):
-    """Check supplied frames for a kernel's supplied-frames entry and lay
-    them out as the kernels read them: ``[B, T, 2^m]`` float distances →
-    ``[T, 2^m, B]`` float32, ``[B, T]`` integer symbols → ``[T, B]`` int32.
-    Returns (channel, symbols, decoded-bits buffer [L, B] int32)."""
-    if symbols.device.type != "cuda":
-        raise ValueError(f"the kernels take CUDA tensors, got {symbols.device}")
-    soft = symbols.dtype.is_floating_point
-    T, M = code.num_block_symbols, code.points_per_symbol
-    if tuple(symbols.shape[1:]) != ((T, M) if soft else (T,)):
-        raise ValueError(f"{code.name} frames must be [B, {T}" + (f", {M}]" if soft else "]")
-                         + f", got {tuple(symbols.shape)}")
-    syms = (symbols.to(torch.float32).permute(1, 2, 0) if soft
-            else symbols.to(torch.int32).T).contiguous()
-    dec = torch.empty((code.block_length, symbols.shape[0]), dtype=torch.int32,
-                      device=symbols.device)
-    return ("awgn" if soft else "bsc"), syms, dec
-
-
-def stack_decode_cuda(code: Code, symbols: torch.Tensor) -> torch.Tensor:
-    """Decode supplied frames (``[B, T, 2^m]`` float32 distances or
-    ``[B, T]`` int received symbols, on a CUDA device) with kernel 7's device
-    code, one frame per lane; returns ``[B, block_length]`` int32 bits.  A
-    check entry (goldens on the card): it does not count as a launch of
-    :func:`mc_stack`."""
-    channel, syms, dec = supplied_frames(code, symbols)
-    _launch(code, dec.shape[1], 1, 0, 0.0, channel, "soft", symbols.device, syms, dec)
-    return dec.T

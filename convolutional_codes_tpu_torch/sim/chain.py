@@ -10,11 +10,12 @@ Each chain mirrors one reference pipeline:
 
 A step takes (generator, channel_param) and returns the error counters of
 one batch of frames as device scalars.  The randomness comes from the
-caller's ``torch.Generator``, which must live on ``device``.  The Viterbi
-decoder runs anywhere (the CUDA kernels on a card).  The stack and Fano
-decoders on supplied symbols run their plain versions on the CPU; on a
-card they raise until TPU kernels 9-10 are ported (ROADMAP Q1 item 13), so
-that the card never runs a plain stand-in for a kernel.  The sweep's
+caller's ``torch.Generator``, which must live on ``device``.  Every
+decoder runs its CUDA kernels on a card and its plain version on the CPU:
+Viterbi through ``ops/viterbi.py``, the stack and Fano decoders on the
+demapper's float distances (AWGN) or the received int symbols (BSC)
+through ``ops/stack_cuda.py`` and ``ops/fano_cuda.py`` (TPU kernels 9-10)
+or the plain machines of ``ops/stack.py`` and ``ops/fano.py``.  The sweep's
 stack/Fano Monte-Carlo leg does not use this chain (``ops/stack_mc.py``,
 ``ops/fano_mc.py``).
 """
@@ -30,8 +31,10 @@ from convolutional_codes_tpu_torch.ops.channels import awgn, bsc
 from convolutional_codes_tpu_torch.ops.demapper import hard_decide, hard_demap, soft_demap
 from convolutional_codes_tpu_torch.ops.encoder import encode
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_decode_hard, fano_decode_soft
+from convolutional_codes_tpu_torch.ops.fano_cuda import fano_decode_cuda
 from convolutional_codes_tpu_torch.ops.mapper import map_symbols, map_symbols_m
 from convolutional_codes_tpu_torch.ops.stack import stack_decode_hard, stack_decode_soft
+from convolutional_codes_tpu_torch.ops.stack_cuda import stack_decode_cuda
 from convolutional_codes_tpu_torch.ops.viterbi import viterbi_decode_hard, viterbi_decode_soft
 from convolutional_codes_tpu_torch.utils.bitops import popcount32
 
@@ -42,9 +45,17 @@ DECODERS = ("viterbi", "stack", "fano")
 StepFn = Callable[[torch.Generator, float], Tuple[torch.Tensor, torch.Tensor, int]]
 
 
-def _sequential_decoder(code: Code, decoder: str, soft: bool, timeout_per_bit: int):
+def _sequential_decoder(code: Code, decoder: str, soft: bool, timeout_per_bit: int,
+                        device: torch.device):
+    """``decode(x) -> bits`` of the stack or Fano decoder: the kernel on a
+    CUDA device, the plain machine elsewhere."""
+    cuda = device.type == "cuda"
     if decoder == "stack":
+        if cuda:
+            return lambda x: stack_decode_cuda(code, x, soft)
         return lambda x: (stack_decode_soft if soft else stack_decode_hard)(code, x)
+    if cuda:
+        return lambda x: fano_decode_cuda(code, x, soft, timeout_per_bit)
     fano = fano_decode_soft if soft else fano_decode_hard
     return lambda x: fano(code, x, timeout_per_bit)
 
@@ -61,35 +72,38 @@ def make_point_step(code: Code, channel: str, decoder: str,
         raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
     if demapper not in DEMAPPERS:
         raise ValueError(f"demapper must be one of {DEMAPPERS}, got {demapper!r}")
-    L, m = code.block_length, code.symlen_out
+    L = code.block_length
     device = torch.device(device)
-    if decoder != "viterbi" and device.type != "cpu":
-        raise NotImplementedError(
-            f"the {decoder} decoder on supplied symbols runs on the CPU only until "
-            "TPU kernels 9-10 are ported (ROADMAP Q1 item 13); the sweep's "
-            f"{decoder} Monte-Carlo leg runs on the card")
     if decoder == "viterbi":
         decode_soft = lambda x: viterbi_decode_soft(code, x)
         decode_hard = lambda x: viterbi_decode_hard(code, x)[0]
     else:
-        decode_soft = _sequential_decoder(code, decoder, True, timeout_per_bit)
-        decode_hard = _sequential_decoder(code, decoder, False, timeout_per_bit)
+        decode_soft = _sequential_decoder(code, decoder, True, timeout_per_bit, device)
+        decode_hard = _sequential_decoder(code, decoder, False, timeout_per_bit, device)
 
     def step(generator: torch.Generator, param):
-        bits = torch.randint(0, 2, (frames, L), generator=generator,
-                             dtype=torch.int32, device=device)
-        syms = encode(code, bits)
-        if channel == "awgn":
-            rx = awgn(generator, map_symbols(code, syms), param)
-            demap = soft_demap if demapper == "soft" else hard_demap
-            dec = decode_soft(demap(m, rx))
-        else:
-            dec = decode_hard(bsc(generator, syms, param, m))
+        bits, rx = chain_frames(code, channel, frames, generator, param, demapper)
+        dec = (decode_soft if channel == "awgn" else decode_hard)(rx)
         errs = dec != bits
         return (errs.sum(dtype=torch.int64), errs.any(dim=-1).sum(dtype=torch.int64),
                 frames * L)
 
     return step
+
+
+def chain_frames(code: Code, channel: str, frames: int, generator: torch.Generator,
+                 param, demapper: str = "soft") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The frames of one step of :func:`make_point_step`, drawn from the
+    generator on its device: (info bits [frames, block_length] int32, the
+    decoder's input: demapped AWGN distances [frames, T, 2^m] float32 or
+    received BSC symbols [frames, T])."""
+    bits = torch.randint(0, 2, (frames, code.block_length), generator=generator,
+                         dtype=torch.int32, device=generator.device)
+    syms = encode(code, bits)
+    if channel == "awgn":
+        rx = awgn(generator, map_symbols(code, syms), param)
+        return bits, (soft_demap if demapper == "soft" else hard_demap)(code.symlen_out, rx)
+    return bits, bsc(generator, syms, param, code.symlen_out)
 
 
 def make_uncoded_step(num_bits: int, frames: int = 1 << 16, device="cuda") -> StepFn:

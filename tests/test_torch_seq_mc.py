@@ -22,7 +22,7 @@ from convolutional_codes_tpu.ops import fano as jfano
 from convolutional_codes_tpu.ops import mc_datagen as jdg
 from convolutional_codes_tpu.ops import stack as jstack
 from convolutional_codes_tpu_torch.models.codebook import get_code
-from convolutional_codes_tpu_torch.ops import fano_mc, mc_datagen, stack_mc
+from convolutional_codes_tpu_torch.ops import fano_cuda, fano_mc, mc_datagen, stack_cuda, stack_mc
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 
 torch.set_num_threads(2)
@@ -111,6 +111,6 @@ def test_wrappers_reject_other_devices_and_shapes():
 def test_supplied_frames_entries_check_their_input():
     code = get_code(0)
     with pytest.raises(ValueError, match="CUDA"):
-        stack_mc.stack_decode_cuda(code, torch.zeros((2, 42), dtype=torch.int32))
+        stack_cuda.stack_decode_cuda(code, torch.zeros((2, 42), dtype=torch.int32), False)
     with pytest.raises(ValueError, match="CUDA"):
-        fano_mc.fano_decode_cuda(code, torch.zeros((2, 42, 4)))
+        fano_cuda.fano_decode_cuda(code, torch.zeros((2, 42, 4)), True)

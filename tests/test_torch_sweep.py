@@ -105,9 +105,8 @@ def test_uncoded_sweep_closed_form():
 def test_unported_legs_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         run_sweep(SweepSpec(points=[4.0]), mesh=object(), verbose=False, device="cpu")
-    for decoder in ("stack", "fano"):     # supplied-symbol decode on the card
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_point_step(get_code(0), "awgn", decoder, device="cuda")
+    for decoder in ("stack", "fano"):     # supplied-symbol decode on the card: kernels 9-10
+        assert callable(make_point_step(get_code(0), "awgn", decoder, device="cuda"))
 
 
 @pytest.mark.parametrize("decoder,points,tpb", [("stack", [0.03, 0.06], 10000),
