@@ -6,7 +6,9 @@
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch, CUDA, nvcc, Triton;
   2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``
-     (one nvcc per source, side by side);
+     (one nvcc per source, side by side), and print the ``-Xptxas -v``
+     report of the Fano kernels (no spills; kernel 10 with a 0-byte stack
+     frame);
   3. kernels against their plain PyTorch versions on the card: the Viterbi
      ACS and traceback kernels on the Viterbi goldens and on random inputs
      (bit-exact), the fused Monte-Carlo kernel on the BSC golden counters
@@ -17,8 +19,10 @@ Phases, each of which raises on failure:
      their plain versions (exact on the kernels' own frames, the plain
      datagen's frames equal to them on BSC and the lanes that differ on
      them counted on AWGN), and the decoders of supplied frames on the same
-     frames, all of them and the first 1000, against the plain machines
-     (bits, metric, iterations, every Fano diagnostic exact); the streaming
+     frames, all of them, the first 1000 and the first 5, against the plain
+     machines (bits, metric, iterations, every Fano diagnostic exact); the
+     Fano kernels at the edges of their launch plan (more frames than
+     resident threads; frames too long for shared memory), exact; the streaming
      ACS and traceback wrappers against their plain versions (bit-exact, soft and
      tie-heavy hard, a two-segment traceback through the carry); the
      long-frame Monte-Carlo kernel against its plain version and against a
@@ -47,7 +51,9 @@ Phases, each of which raises on failure:
      shapes: the Monte-Carlo kernel at configs 0 (exact) and 2 (at most 1%
      of lanes different), the streaming wrappers bit for bit at both
      decode shapes, the decoders of supplied frames exactly on every frame
-     of each batch, which their plain machines are timed on.
+     of each batch, which their plain machines are timed on.  The Fano
+     kernels also print their launch plan, and kernel 10 is timed again on
+     its slowest frame alone (ns per walk iteration).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
@@ -138,6 +144,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def print_ptxas(log: str) -> None:
+    """The ``-Xptxas -v`` report of the Fano kernels (kernels 8 and 10 for
+    each node storage): registers, stack frame and spills.  No instance may
+    spill, and kernel 10's keep a 0-byte stack frame.  Kernel 8's keep
+    exactly 32 bytes, the local array of sinf/cosf's reduction of huge
+    arguments (its datagen's Box-Muller; never taken, the angle is below
+    2 pi), as kernel 7 does: a frame that grows fails."""
+    import re
+    require(log, "no -Xptxas -v report of fano_mc.cu")
+    instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
+                           r"\S+\n\s*(.*?)\n.*?(Used \d+ registers)", log, re.S)
+    require(len(instances) == 4, f"-Xptxas -v: {len(instances)} Fano kernel instances, want 4")
+    for mangled, frame, regs in instances:
+        kernel = re.search(r"(fano_mc_kernel|fano_decode_kernel)INS_\d+(\w+?Nodes)E", mangled)
+        print(f"ptxas: {kernel[1]}<{kernel[2]}>: {regs}, {frame}")
+        require(frame.endswith("0 bytes spill stores, 0 bytes spill loads"),
+                f"{kernel[0]} spills: {frame}")
+        want = "32" if kernel[1] == "fano_mc_kernel" else "0"
+        require(frame.startswith(f"{want} bytes stack frame"), f"{kernel[0]}: {frame}")
 
 
 # ---------------------------------------------------------------- z-check
@@ -350,8 +377,8 @@ def check_sequential_kernels(torch, dev, stats):
             own_diff = int((k != own).any(0).sum())
             require(own_diff == 0, f"{tag} on the kernel's own frames: {own_diff} lanes differ")
             stats["mc_" + decoder] = max(stats["mc_" + decoder], float((k - own).abs().max()))
-            # kernel 9 or 10 on the same frames, all of them and the first 1000
-            for n in (lanes * fpl, 1000):
+            # kernel 9 or 10 on the same frames: all of them, the first 1000 and 5
+            for n in (lanes * fpl, 1000, 5):
                 got = decode_supplied(decoder, code, syms[:n], soft, tpb)
                 torch.cuda.synchronize()
                 bad, err = supplied_diff(torch, got, (plain[0][:n], {
@@ -361,7 +388,7 @@ def check_sequential_kernels(torch, dev, stats):
                 stats[decoder + "_decode"] = max(stats[decoder + "_decode"], err)
             fb, fs = mc_datagen.frames_host(code, gids, seed, param, channel, demapper, dev)
             require(torch.equal(fb, bits), f"{tag}: frame bits differ")
-            same9 = (f"{kernel} = plain at B={lanes * fpl} and 1000 (bits, metric, "
+            same9 = (f"{kernel} = plain at B={lanes * fpl}, 1000 and 5 (bits, metric, "
                      f"{'diagnostics, ' if decoder == 'fano' else ''}iterations)")
             if channel == "bsc":
                 # the plain datagen's frames are the kernel's: own is the plain version's count
@@ -376,6 +403,57 @@ def check_sequential_kernels(torch, dev, stats):
             print(f"{tag}: 0/{lanes} lanes differ on the kernel's own frames (exact); "
                   f"{diff}/{lanes} lanes differ on the plain datagen's frames; "
                   f"bit errors {int(k[0].sum())} vs {int(r[0].sum())}; {same9}")
+
+
+#: kernels 8 and 10 at the edges of their launch plan: (code, channel,
+#: point, timeout_per_bit, lanes, frames per lane); None is code 0's
+#: polynomials with block_length 600 (T = 602 > 454: node records in device
+#: memory)
+FANO_EDGES = [(0, "bsc", 0.05, 20, 16384, 3), (None, "awgn", 4.0, 5, 256, 2),
+              (None, "bsc", 0.03, 5, 256, 2)]
+
+
+def check_fano_edges(torch, dev, stats):
+    """Kernels 8 and 10 against the plain machine at FANO_EDGES: more frames
+    than resident threads, and frames too long for shared memory (exact:
+    per-lane counters, and every output of every frame)."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fano, fano_cuda, fano_mc, mc_datagen, stack_mc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+
+    for ck, channel, point, tpb, lanes, fpl in FANO_EDGES:
+        code = get_code(0).replace(name="k3-r12-long", block_length=600) if ck is None \
+            else get_code(ck)
+        soft = channel == "awgn"
+        param = float(awgn_sigma(point)) if soft else point
+        T = code.num_block_symbols
+        plan, resident = fano_mc.fano_plan(T), {}
+        for mc in (True, False):
+            occ = fano_mc.occupancy(mc, plan, dev.index)
+            resident[mc] = occ["sms"] * occ["blocks_per_sm"] * plan.threads
+        gids = torch.arange(lanes * fpl, device=dev)
+        bits, syms = mc_datagen.frames_cuda(code, gids, 17, param, channel)
+        plain = fano.fano_machine(code, syms, soft, tpb)
+        own = torch.zeros((3, lanes), dtype=torch.int64, device=dev)
+        stack_mc.count_errors(own, gids // fpl, plain[0], bits, plain[1]["iters"])
+        k = fano_mc.mc_fano(code, lanes, fpl, 17, param, channel, timeout_per_bit=tpb,
+                            device=dev)
+        diff = int((k != own).any(0).sum())
+        stats["mc_fano"] = max(stats["mc_fano"], float((k - own).abs().max()))
+        got = fano_cuda.fano_decode_cuda(code, syms, soft, tpb, with_diag=True)
+        torch.cuda.synchronize()
+        bad, err = supplied_diff(torch, got, plain)
+        stats["fano_decode"] = max(stats["fano_decode"], err)
+        print(f"kernels 8/10 {code.name} T={T} {channel} {point:g}, {lanes} lanes x {fpl} "
+              f"({lanes * fpl} frames; records in {'shared' if plan.nodes_shared else 'device'}"
+              f" memory; resident threads: kernel 8 {resident[True]}, kernel 10 "
+              f"{resident[False]}): kernel 8 {diff}/{lanes} lanes differ from the plain "
+              f"machine, kernel 10 outputs {'equal' if not bad else bad}; timed out "
+              f"{int(plain[1]['timed_out'].sum())}")
+        require(diff == 0 and not bad, f"kernels 8/10 vs plain at {code.name} {channel}")
+        require(ck is not None or not plan.nodes_shared, "long frames not in device memory")
+        require(ck is None or lanes * fpl > max(resident.values()),
+                "fewer frames than resident threads")
 
 
 LONGFRAME_CASES = [  # tests/test_fused_longframe.py:41-51: (code, channel, point, demapper)
@@ -751,8 +829,24 @@ SEQ_RATES = [("stack", "k9-r12", 4.0), ("stack", "k9-r12", 8.0),
 def warp_divergence(iters) -> float:
     """Sum over warps of 32 lanes of 32 times the warp's largest lane
     iteration count, over the sum of iterations (1 when every lane of a warp
-    walks as long); ``iters`` holds a multiple of 32 lanes."""
+    walks as long); ``iters`` holds a multiple of 32 lanes.  It describes
+    the stack kernels (7, 9: one thread per lane or frame); the Fano kernels
+    (8, 10) take frames from a queue, so their warps hold no fixed lanes."""
     return float(iters.view(-1, 32).amax(dim=1).sum()) * 32 / float(iters.sum())
+
+
+def plan_text(mc: bool, code, dev) -> str:
+    """Kernel 8's (``mc``) or 10's launch plan for ``code``: threads per
+    block, resident blocks per SM, shared bytes per block, registers and
+    local bytes per thread."""
+    from convolutional_codes_tpu_torch.ops import fano_mc
+    plan = fano_mc.fano_plan(code.num_block_symbols)
+    occ = fano_mc.occupancy(mc, plan, dev.index)
+    where = f"records in {'shared' if plan.nodes_shared else 'device'} memory"
+    return (f"plan: {where}, {plan.threads} threads/block, "
+            f"{occ['blocks_per_sm']} blocks/SM "
+            f"({occ['blocks_per_sm'] * plan.threads} walks/SM), {plan.smem_bytes} shared "
+            f"bytes/block, {occ['registers']} registers, {occ['local_bytes']} local bytes")
 
 
 def iteration_bound_ms(name: str, iters, clock: float) -> float:
@@ -774,6 +868,8 @@ def measure_sequential(torch, dev, card, clock):
     for n, (decoder, ck, snr) in enumerate(SEQ_RATES):
         mc, ref = fns[decoder]
         code, sigma, lanes = get_code(ck), float(awgn_sigma(snr)), 8192
+        mc(code, lanes, 1, 1, sigma, device=dev)   # warm-up: plan, scratch
+        torch.cuda.synchronize()
         t0 = time.time()
         mc(code, lanes, 1, 1, sigma, device=dev)
         torch.cuda.synchronize()
@@ -786,7 +882,10 @@ def measure_sequential(torch, dev, card, clock):
         bits = lanes * fpl * code.block_length
         rate = bits / ms * 1e3
         iters = out[2]
-        div = warp_divergence(iters)
+        if decoder == "fano":
+            spread = plan_text(True, code, dev)
+        else:
+            spread = f"warp divergence {warp_divergence(iters):.3f}"
         if decoder == "fano" and snr < 4.0:
             # timeout-bound: every frame walks 10000 * T SEARCH steps, which
             # the lockstep plain machine would take minutes over
@@ -802,7 +901,7 @@ def measure_sequential(torch, dev, card, clock):
               f"frames: {rate:.6e} info bits/s ({rate / C_CORE_SEQ_BITS_PER_S[decoder]:.1f}x "
               f"the {C_CORE_SEQ_BITS_PER_S[decoder]:.2g} C core at 0 dB), BER "
               f"{float(out[0].sum()) / bits:.6e}, kernel {ms:.3f} ms per launch, iterations "
-              f"{int(iters.sum())} (max lane {int(iters.max())}, warp divergence {div:.3f}), "
+              f"{int(iters.sum())} (max lane {int(iters.max())}, {spread}), "
               f"bound {iteration_bound_ms('mc_' + decoder, iters, clock):.3f} ms; {plain_txt}")
 
     code0, sigma8 = get_code(0), float(awgn_sigma(8.0))
@@ -824,6 +923,44 @@ def measure_sequential(torch, dev, card, clock):
     return times, plain, bound
 
 
+#: codes of phase 5's comparison of kernel 8's node storages: T from 42 to
+#: 214 nodes, and 16-QAM beside k15-r12 (the same T, 4x the symbols)
+FANO_PLAN_CODES = (0, "wspr-k32", "k9-r12", "nasa-k7", "k15-r12", "k15-r14-16qam")
+
+
+def compare_fano_plans(torch, dev, card):
+    """Kernel 8 at 8192 lanes, AWGN soft 8 dB, at FANO_PLAN_CODES under its
+    own plan (node records in shared memory at these T) and with the records
+    in device memory (GLOBAL_THREADS per block), on the same frames, timed
+    own, device, device, own (CUDA events, one launch each); the counters
+    must be equal."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fano_mc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
+
+    glob = fano_mc.FanoPlan(fano_mc.GLOBAL_THREADS, 0, False)
+    sigma, lanes = float(awgn_sigma(8.0)), 8192
+    for n, ck in enumerate(FANO_PLAN_CODES):
+        code = get_code(ck)
+        own = fano_mc.fano_plan(code.num_block_symbols)
+        run = lambda fpl, plan: cuda_call(lambda: fano_mc._launch(
+            code, lanes, fpl, 2000 + n, sigma, "awgn", "soft", FANO_TIMEOUT, dev, plan=plan))
+        run(1, own)
+        run(1, glob)
+        fpl = max(1, min(4096, int(500.0 / max(run(1, own)[1], 0.01))))
+        outs, ms = zip(*(run(fpl, plan) for plan in (own, glob, glob, own)))
+        require(all(torch.equal(o, outs[0]) for o in outs),
+                f"kernel 8 {code.name}: the node storages' counters differ")
+        occ = {p: fano_mc.occupancy(True, p, dev.index) for p in (own, glob)}
+        walks = {p: occ[p]["blocks_per_sm"] * p.threads for p in (own, glob)}
+        print(f"kernel 8 node storage [{card}]: {code.name} (T={code.num_block_symbols}, "
+              f"M={code.points_per_symbol}) AWGN soft 8 dB, {lanes} lanes x {fpl}: "
+              f"shared ({own.threads} threads/block, {walks[own]} walks/SM) {ms[0]:.3f} / "
+              f"{ms[3]:.3f} ms, device memory ({glob.threads} threads/block, {walks[glob]} "
+              f"walks/SM) {ms[1]:.3f} / {ms[2]:.3f} ms, counters equal")
+
+
 #: kernels 9-10 in phase 5, AWGN soft 8 dB: (decoder, code, frames); the
 #: first row of each decoder is the supplied-frame path's shape
 SUPPLIED_RATES = (("stack", 0, SUPPLIED_FRAMES), ("fano", 0, SUPPLIED_FRAMES),
@@ -833,8 +970,9 @@ SUPPLIED_RATES = (("stack", 0, SUPPLIED_FRAMES), ("fano", 0, SUPPLIED_FRAMES),
 def measure_supplied(torch, dev, card, clock, stats):
     """Kernels 9-10 at SUPPLIED_RATES' shapes on the modular chain's frames:
     kernel time (CUDA events), decode-only and chain info bits/s, BER,
-    iterations, warp divergence and the bound; the plain machine on the
-    same whole batch, timed and held exactly against the kernel."""
+    iterations, warp divergence (kernel 9) and the bound; the plain machine
+    on the same whole batch, timed and held exactly against the kernel.
+    Kernel 10 also alone on its slowest frame, and its launch plan."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
     from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
@@ -875,20 +1013,40 @@ def measure_supplied(torch, dev, card, clock, stats):
         bad, err = supplied_diff(torch, got, want)
         require(not bad, f"{name} vs plain at {code.name} B={B}: {bad} differ")
         stats[name] = max(stats[name], err)
+        spread = ("" if decoder == "fano"
+                  else f", warp divergence {warp_divergence(iters):.3f}")
         print(f"{name} [{card}]: {code.name} AWGN soft 8 dB, B={B}: kernel {ms:.3f} ms per "
               f"launch, decode {B * L / ms * 1e3:.6e} info bits/s, chain "
               f"{chain_bits / chain_s:.6e} "
               f"info bits/s ({chain_s * 1e3:.1f} ms per step), BER {ber:.6e}, iterations "
-              f"{int(iters.sum())} (max lane {int(iters.max())}, median "
-              f"{float(iters.double().median()):.0f}, warp divergence "
-              f"{warp_divergence(iters):.3f}), bound {b_ms[0]:.4f} ms ({b_ms[1]}; operations "
+              f"{int(iters.sum())} (max frame {int(iters.max())}, median "
+              f"{float(iters.double().median()):.0f}{spread}), bound {b_ms[0]:.4f} ms "
+              f"({b_ms[1]}; operations "
               f"{ops_ms:.4f} ms at {INSTR_PER_ITER[name]} instr./iteration est., bytes "
               f"{bytes_ms:.4f} ms); plain machine on the same {B} frames: {plain_ms:.1f} ms, "
               f"outputs equal")
+        if decoder == "fano":
+            print(f"  {fano_alone(torch, code, d, got)}; "
+                  f"{plan_text(False, code, dev)}")
         if name not in times:
             times[name], plain[name], bound[name] = ms, plain_ms, b_ms
         del got, d, bits
     return times, plain, bound
+
+
+def fano_alone(torch, code, d, got) -> str:
+    """Kernel 10 launched again on the batch's slowest frame alone (the
+    serial chain of one walk: ns per iteration), held against the first
+    launch (``got``)."""
+    from convolutional_codes_tpu_torch.ops.fano_cuda import fano_decode_cuda
+    iters = got[1]["iters"]
+    j = int(iters.argmax())
+    alone, alone_ms = cuda_call(lambda: fano_decode_cuda(code, d[j:j + 1], True,
+                                                         with_diag=True))
+    require(torch.equal(alone[0][0], got[0][j]) and int(alone[1]["iters"][0]) == int(iters[j]),
+            "kernel 10 on its slowest frame alone differs")
+    return (f"slowest frame alone (B=1, {int(iters[j])} iterations): {alone_ms:.3f} ms, "
+            f"{alone_ms * 1e6 / int(iters[j]):.1f} ns per iteration")
 
 
 def longframe_instr_per_symbol(code, channel: str) -> int:
@@ -1041,6 +1199,7 @@ def main() -> int:
         build.build_all()
         for name in build.LIBRARIES:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
+        print_ptxas(build.build_log.get("fano_mc", ""))
 
     wrappers = {"acs_forward": vc.acs_forward_cuda, "traceback": vc.traceback_cuda,
                 "mc_chain": fc.mc_chain_viterbi, "mc_stack": stack_mc.mc_stack,
@@ -1054,6 +1213,7 @@ def main() -> int:
         check_viterbi_kernels(torch, dev, stats)
         check_fused_kernel(torch, dev, stats)
         check_sequential_kernels(torch, dev, stats)
+        check_fano_edges(torch, dev, stats)
         check_longframe_kernels(torch, dev, stats)
         for k, w in wrappers.items():
             require(w.launches > 0, f"kernel {k} was never launched")
@@ -1101,6 +1261,7 @@ def main() -> int:
                          measure_supplied(torch, dev, card, clock, stats)):
             for d in zip((times, plain, bound), measured):
                 d[0].update(d[1])
+        compare_fano_plans(torch, dev, card)
 
     require("jax" not in sys.modules, "the port imported JAX")
     ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "convolutional_codes_tpu")

@@ -2,24 +2,22 @@
 // decoder of supplied frames, one serial walk shared by both.
 //
 // fano_mc_kernel replaces the TPU kernel convolutional_codes_tpu/ops/
-// fano_mc.py `_fano_mc_kernel` (:65, entry mc_fano :443).  One thread per
-// lane runs frames gid = lane * fpl + k, k = 0 .. fpl-1: it generates each
-// frame in the thread (sequential.cuh), decodes it with the reference's
-// serial Fano walk, and banks its bit errors and one frame error if any.
-// The per-lane counters [3][lanes] int64 (bit errors, frame errors, walk
-// iterations) are the only output; the lane is the only coordinate, so the
-// counters do not depend on the block size.
+// fano_mc.py `_fano_mc_kernel` (:65, entry mc_fano :443).  Frame
+// gid = lane * fpl + k (k = 0 .. fpl-1) is generated in the thread
+// (sequential.cuh), decoded with the reference's serial Fano walk, and its
+// bit errors, frame error and walk iterations are added to the per-lane
+// counters [3][lanes] int64.  The sums are of integers, so they do not
+// depend on the order of the adds nor on the launch geometry.
 //
 // fano_decode_kernel replaces the TPU kernel ops/fano_pallas.py
-// `_fano_kernel` (:52, entry fano_decode_pallas :313).  One thread per
-// supplied frame runs the same walk and writes its decoded bits [L][B] and
-// what the JAX entry's diagnostics read at exit (fano_pallas.py:344-356):
-// the metric of the node it stopped on, the SEARCH budget left, that
-// node's depth, and the walk's iterations, each [B].  The TPU entry cut the
-// walk into bounded calls with lane compaction on the host (a watchdog of
-// that backend); here one launch runs every walk to its end, so it lasts
-// as long as its slowest frame: a timed-out frame walks timeout_per_bit * T
-// SEARCH steps.
+// `_fano_kernel` (:52, entry fano_decode_pallas :313).  Each supplied frame
+// b of [B][T][M] distances (or [B][T] received symbols) runs the same walk
+// and writes its decoded bits [B][L] and what the JAX entry's diagnostics
+// read at exit (fano_pallas.py:344-356): the metric of the node it stopped
+// on, the SEARCH budget left, that node's depth, and the walk's iterations.
+// The TPU entry cut the walk into bounded calls with lane compaction on the
+// host (a watchdog of that backend); here one launch runs every walk to its
+// end.
 //
 // The walk is tests/golden_model.py's `_fano_decode` with the JAX kernels'
 // choices (fano_mc.py:153-260, fano_pallas.py:129-230): successors sorted
@@ -34,227 +32,529 @@
 // and IEEE division: every product is rounded before its add
 // (tests/goldens/fano_fma_regression.npz is the guard).
 //
-// The TPU kernels ran this as a lockstep machine over [5, T, Bt] / [3, T, Bt]
-// node planes with masked reduces; here each lane walks on its own, its node
-// arrays in device-memory scratch laid out [field][node][lane].  What bounds
-// it on the H100: the latency of one serially dependent node access per
-// step and instruction throughput, with warp divergence — a timed-out frame
-// walks timeout_per_bit * T steps while its warp-mates finish in about T.
+// What bounds it on the H100: the walk is a serial chain, one dependent
+// step after another, so a frame's time is its iterations times the
+// latency of one step, and the card's throughput is the number of walks in
+// flight over that latency.  The design attacks both:
+//  * The node record.  A node is 16 bytes, {state | selected << 31,
+//    nmetric, m0, m1} with m0/m1 the branch metrics by input bit, unsorted.
+//    The sorted order, the decoded bit (swap ^ selected, swap = m0 < m1:
+//    the comparison that sorted them), the selected metric m[decoded] and
+//    the successor (state | decoded << (K-1)) >> 1 are derived.  The record
+//    of the current node lives in registers, so a SEARCH step touches
+//    memory only to read the two branch metrics of the next node (fetched
+//    before the threshold compare: the next state does not depend on it)
+//    and to store the record it enters; a BACKTRACK step reads one record.
+//  * Shared memory.  The records of a frame are laid out [word][node][slot]
+//    with a stride of blockDim.x (a multiple of 32): a lane's bank is its
+//    slot whatever node it stands on, so lanes at different depths never
+//    conflict.  A frame of T > 454 nodes leaves no room for 32 slots in a
+//    block; it runs the same walk (fano_step is a template over the
+//    storage) on device-memory scratch in the same layout, strided by the
+//    grid's slots.
+//  * The branch metrics; the next node's two are fetched before the
+//    compare.  Kernel 8's datagen writes each frame's T * M metrics once
+//    into a table in device memory, one per slot, so a step reads a metric
+//    instead of computing it (staging the table in shared memory would
+//    halve the walks an SM holds).  Kernel 10 computes its metrics at each
+//    step from the supplied frame where it lies, in its own [B][T][M]
+//    layout.
+//  * A queue of frames.  The grid is persistent (SMs x resident blocks);
+//    a lane whose walk has stopped takes the next frame with an atomicAdd
+//    on a counter the caller zeroes, so a slow frame no longer idles its
+//    warp-mates for the rest of the launch.  The loop has no inner loop per
+//    frame (a warp would wait there for its slowest lane): each turn is a
+//    vote, then kStepsPerVote walk steps.  The lanes of a warp write out a
+//    stopped walk's frame together and, in kernel 8, make its next frame,
+//    so that work does not run one lane at a time.  Memory for records and
+//    tables scales with resident threads, not with lanes or frames.
 #include "sequential.cuh"
 
 namespace {
 
 constexpr float kDelta = 17.0f;
-constexpr int kFields = 8;   // nstate succ0 succ1 | nmetric tm0 tm1 | selected decoded
+constexpr unsigned kSel = 1u << 31;   // the selected flag in word 0
+constexpr int kMaxThreads = 128;      // threads per block of any plan
+constexpr int kStepsPerVote = 8;      // walk steps between two refill votes of a warp
 
-struct FanoNodes {
-  unsigned *nstate, *succ0, *succ1;
-  float *nmetric, *tm0, *tm1;
-  int *selected, *decoded;
-};
-
-// One lane's node arrays in the scratch: node t of a field at [t * S].
-__device__ __forceinline__ FanoNodes fano_nodes(int* scratch, int lane, size_t S, int T) {
-  const size_t TS = (size_t)T * S;
-  int* base = scratch + lane;
-  FanoNodes n;
-  n.nstate = (unsigned*)base;
-  n.succ0 = (unsigned*)(base + TS);
-  n.succ1 = (unsigned*)(base + 2 * TS);
-  n.nmetric = (float*)(base + 3 * TS);
-  n.tm0 = (float*)(base + 4 * TS);
-  n.tm1 = (float*)(base + 5 * TS);
-  n.selected = base + 6 * TS;
-  n.decoded = base + 7 * TS;
-  return n;
+// The slot of lane `lane` of this thread's warp.
+__device__ __forceinline__ unsigned slot_in_block(unsigned lane) {
+  return (threadIdx.x & ~31u) + lane;
 }
 
-// Where a walk stopped: the node's depth and metric, the SEARCH budget left.
-struct FanoExit {
-  int depth, timeout_left;
-  float metric;
-};
-
-// Branch data of node t (state s), sorted best-first.
-__device__ __forceinline__ void fano_node(const SeqDecoderParams& p, const FanoNodes& n,
-                                          const float* fs, const int* is, size_t S, int t,
-                                          unsigned s) {
-  unsigned ns0, ns1;
-  const unsigned e0 = seq_branch(s, 0u, p.s, &ns0);
-  const unsigned e1 = seq_branch(s, 1u, p.s, &ns1);
-  const float m0 = seq_metric(p, fs, is, S, t, e0);
-  const float m1 = seq_metric(p, fs, is, S, t, e1);
-  const bool swap = m0 < m1;
-  const size_t i = (size_t)t * S;
-  n.succ0[i] = swap ? ns1 : ns0;
-  n.succ1[i] = swap ? ns0 : ns1;
-  n.tm0[i] = swap ? m1 : m0;
-  n.tm1[i] = swap ? m0 : m1;
-  n.decoded[i] = swap;
-  n.selected[i] = 0;
-}
-
-// Decodes the frame in fs/is into n.decoded; adds the walk's iterations and
-// returns where it stopped.  A finish or an exhausted budget leaves cur
-// where it was, so its node metric is the one written when it was entered.
-__device__ FanoExit fano_decode(const SeqDecoderParams& p, const FanoNodes& n,
-                                const float* fs, const int* is, size_t S, long long* iters) {
-  const int T = p.s.T;
-  for (int t = 0; t < T; ++t) {  // nodes beyond the deepest visit decode 0
-    n.selected[t * S] = 0;
-    n.decoded[t * S] = 0;
+// A slot's node records in shared memory: word w of node t at
+// base[(w * T + t) * blockDim.x], base = smem + slot.
+struct SharedNodes {
+  unsigned* base;
+  unsigned stride;
+  int T;
+  static __device__ __forceinline__ SharedNodes make(unsigned*, int T, unsigned lane) {
+    extern __shared__ unsigned smem[];
+    return {smem + slot_in_block(lane), blockDim.x, T};
   }
-  n.nstate[0] = 0u;
-  n.nmetric[0] = 0.0f;
-  fano_node(p, n, fs, is, S, 0, 0u);
-  int cur = 0, timeout = p.timeout;
-  float thr = 0.0f;
-  bool backtrack = false;
+  __device__ __forceinline__ unsigned& word(int w, int t) const {
+    return base[((unsigned)w * T + t) * stride];
+  }
+};
+
+// The same records in device-memory scratch, strided by the grid's slots.
+struct GlobalNodes {
+  unsigned* base;
+  size_t stride;
+  int T;
+  static __device__ __forceinline__ GlobalNodes make(unsigned* scratch, int T, unsigned lane) {
+    const size_t slot = (size_t)blockIdx.x * blockDim.x + slot_in_block(lane);
+    return {scratch + slot, (size_t)gridDim.x * blockDim.x, T};
+  }
+  __device__ __forceinline__ unsigned& word(int w, int t) const {
+    return base[((size_t)w * T + t) * stride];
+  }
+};
+
+// Kernel 8's metric table of lane `lane`'s slot: T * M floats of device
+// memory.
+__device__ __forceinline__ float* slot_table(float* tables, int T, int M, unsigned lane) {
+  return tables + ((size_t)blockIdx.x * blockDim.x + slot_in_block(lane)) * T * M;
+}
+
+// The encoder in registers: the polynomials in reverse order, zero beyond
+// symlen, so that an expected symbol is one branch-free expression with
+// constant shifts (seq_esym of sequential.cuh, quirk included).
+struct Encoder {
+  unsigned rpoly[CC_SEQ_MAX_SYMLEN];   // rpoly[k] = polys[symlen - 1 - k]
+  unsigned qmask, top;
+  static __device__ __forceinline__ Encoder make(const SeqParams& p) {
+    Encoder c;
+#pragma unroll
+    for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k)
+      c.rpoly[k] = k < p.symlen ? p.polys[p.symlen - 1 - k] : 0u;
+    c.qmask = p.qmask;
+    c.top = (unsigned)p.K - 1u;
+    return c;
+  }
+  // Expected symbol of the branch from `state` with input `bit`.
+  __device__ __forceinline__ unsigned esym(unsigned state, unsigned bit) const {
+    const unsigned r = state | bit << top;
+    unsigned e = 0u;
+#pragma unroll
+    for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k) {
+      const unsigned x = r & rpoly[k];
+      e |= ((__popc(x) & ~__popc(x & qmask)) & 1u) << k;
+    }
+    return e;
+  }
+};
+
+// A frame's branch metrics as a table, made once per frame: the metric of
+// expected symbol e at node t at base[t * M + e].
+struct TableMetrics {
+  const float* base;
+  unsigned M;
+  __device__ __forceinline__ float at(int t, unsigned e) const {
+    return base[(unsigned)t * M + e];
+  }
+};
+
+// A supplied frame's branch metrics computed at each step from its symbols
+// in device memory ([T][M] distances or [T] received symbols; seq_metric).
+struct FrameMetrics {
+  const SeqDecoderParams* p;
+  const float* fs;
+  __device__ __forceinline__ float at(int t, unsigned e) const {
+    return seq_metric(*p, fs, (const int*)fs, 1, t, e);
+  }
+};
+
+// Branch metrics of seq_metric, with the same float operations: soft from
+// a distance d, hard from the received symbol rx and the expected symbol e.
+__device__ __forceinline__ float soft_metric(const SeqDecoderParams& p, float d) {
+  return 1.0f + __fmul_rn(p.weight, d);
+}
+
+__device__ __forceinline__ float hard_metric(const SeqDecoderParams& p, unsigned e, unsigned rx) {
+  const int h = __popc(e ^ rx);
+  return (float)(h * p.wrong + (p.s.symlen - h) * p.correct);
+}
+
+template <class Nodes>
+__device__ __forceinline__ void put_node(const Nodes& n, int t, unsigned w0, float nm, float m0,
+                                         float m1) {
+  n.word(0, t) = w0;
+  n.word(1, t) = __float_as_uint(nm);
+  n.word(2, t) = __float_as_uint(m0);
+  n.word(3, t) = __float_as_uint(m1);
+}
+
+// The decoded bit of node t: swap ^ selected, 0 beyond the deepest visit.
+template <class Nodes>
+__device__ __forceinline__ unsigned node_bit(const Nodes& n, int t, int deepest) {
+  if (t > deepest) return 0u;
+  const bool swap = __uint_as_float(n.word(2, t)) < __uint_as_float(n.word(3, t));
+  return (unsigned)swap ^ (n.word(0, t) >> 31);
+}
+
+// One frame's walk: the current node's record in registers (state,
+// selected, nmetric, m0, m1), the threshold, the budget left, the deepest
+// node visited, the iterations.  `done` once the walk has stopped; a finish
+// or an exhausted budget leaves cur where it was, so nm is the metric
+// written when cur was entered.
+struct Walk {
+  unsigned state, sel;
+  float nm, m0, m1, thr;
+  int cur, deepest, timeout;
+  bool backtrack, done;
+  long long iters;
+};
+
+template <class Nodes, class Metrics>
+__device__ __forceinline__ void fano_start(Walk& w, const Nodes& n, const Metrics& m,
+                                           const Encoder& enc, int timeout) {
+  w.state = w.sel = 0u;
+  w.nm = w.thr = 0.0f;
+  w.m0 = m.at(0, enc.esym(0u, 0u));
+  w.m1 = m.at(0, enc.esym(0u, 1u));
+  put_node(n, 0, 0u, 0.0f, w.m0, w.m1);
+  w.cur = w.deepest = 0;
+  w.timeout = timeout;
+  w.backtrack = w.done = false;
+  w.iters = 0;
+}
+
+// One iteration of the walk (the loop body of fano-decoder.c).  The caller
+// runs it as the body of its one loop over frames and steps, so that a lane
+// whose walk ends takes its next frame without waiting for the rest of its
+// warp.
+template <class Nodes, class Metrics>
+__device__ __forceinline__ void fano_step(Walk& w, const Nodes& n, const Metrics& m,
+                                          const Encoder& enc, int T) {
+  ++w.iters;
+  if (!w.backtrack) {      // SEARCH (fano-decoder.c:183-236)
+    if (w.timeout == 0) {
+      w.done = true;
+      return;
+    }
+    --w.timeout;
+    const unsigned dec = (unsigned)(w.m0 < w.m1) ^ w.sel;
+    const float ms = w.nm + (dec ? w.m1 : w.m0);
+    // the successor and its branch metrics, read before the compare
+    const unsigned next = (w.state | dec << enc.top) >> 1;
+    const int tn = w.cur + 1 < T ? w.cur + 1 : w.cur;
+    const float n0 = m.at(tn, enc.esym(next, 0u)), n1 = m.at(tn, enc.esym(next, 1u));
+    if (ms >= w.thr) {
+      const float thr = w.thr;
+      if (w.nm < thr + kDelta) {   // tighten: closed form of the += DELTA loop
+        // k0 = floor((ms - thr) / DELTA), then ++k if ms >= thr + (k+1) DELTA,
+        // then --k if ms < thr + k DELTA: the same operations, the three
+        // thresholds the two corrections can reach computed side by side
+        const int k0 = (int)floorf((ms - thr) / kDelta);
+        const float t_lo = thr + (float)(k0 - 1) * kDelta, t_k0 = thr + (float)k0 * kDelta,
+                    t_hi = thr + (float)(k0 + 1) * kDelta;
+        const bool up = ms >= t_hi;
+        const bool down = ms < (up ? t_hi : t_k0);
+        const int k = k0 + (int)up - (int)down;
+        const float t_k = up ? (down ? t_k0 : t_hi) : (down ? t_lo : t_k0);
+        w.thr = k > 0 ? t_k : thr + (float)0 * kDelta;
+      }
+      if (w.cur + 1 == T) {
+        w.done = true;
+        return;
+      }
+      ++w.cur;
+      w.deepest = w.cur > w.deepest ? w.cur : w.deepest;
+      w.state = next;
+      w.sel = 0u;
+      w.nm = ms;
+      w.m0 = n0;
+      w.m1 = n1;
+      put_node(n, w.cur, next, ms, n0, n1);
+      return;
+    }
+    w.backtrack = true;
+  }
+  // BACKTRACK (fano-decoder.c:237-264)
+  const int prev = w.cur > 0 ? w.cur - 1 : 0;
+  const unsigned w0 = n.word(0, prev);
+  const float pm = __uint_as_float(n.word(1, prev));
+  const float p0 = __uint_as_float(n.word(2, prev)), p1 = __uint_as_float(n.word(3, prev));
+  if (w.cur > 0 && pm >= w.thr) {
+    w.cur = prev;
+    w.state = w0 & ~kSel;
+    w.sel = w0 >> 31;
+    w.nm = pm;
+    w.m0 = p0;
+    w.m1 = p1;
+    if (w.sel == 0u) {                // take the second branch
+      w.sel = 1u;
+      n.word(0, prev) = w0 | kSel;
+      w.backtrack = false;
+    }
+  } else {                            // relax, retry from the best branch
+    w.thr = w.thr - kDelta;
+    if (w.sel != 0u) {
+      w.sel = 0u;
+      n.word(0, w.cur) = w.state;
+    }
+    w.backtrack = false;
+  }
+}
+
+// Refills and retirements are collective over the lanes of a warp still
+// in its loop (`alive`): a lane whose walk has stopped hands its frame to
+// all of them, which share its writing out and the making of its next
+// frame, so the work that is not a walk step runs on every lane instead
+// of one lane at a time.  Rank r of the n alive lanes takes the part r of
+// each such loop.
+struct Crew {
+  unsigned alive, lane;
+  int rank, n;
+  __device__ __forceinline__ void set(unsigned mask) {
+    alive = mask;
+    rank = __popc(alive & ((1u << lane) - 1u));
+    n = __popc(alive);
+  }
+};
+
+// Frame gid's metric table into the table `buf` of another lane, made by
+// the crew: rank r makes symbols [r * seg, (r + 1) * seg) with gen_symbol,
+// its encoder register primed with the K-1 info bits before them, and
+// writes their metrics without reading the table back.
+__device__ __forceinline__ void crew_gen(const SeqDecoderParams& p, const Crew& c, unsigned gid,
+                                         float* buf) {
+  const int T = p.s.T, K = p.s.K, M = p.s.M;
+  const int seg = (T + c.n - 1) / c.n, t0 = c.rank * seg, t1 = min(T, t0 + seg);
+  unsigned reg = 0u;
+  for (int t = max(0, t0 - K + 1); t < t0; ++t)
+    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
+  for (int t = t0; t < t1; ++t) {
+    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
+    float* row = buf + (unsigned)t * M;
+    const unsigned rx = gen_symbol(p.s, gid, t, seq_esym(reg, p.s), [&](int e, float d) {
+      row[e] = soft_metric(p, d);
+    });
+    if (!p.s.soft)
+      for (int e = 0; e < M; ++e) row[e] = hard_metric(p, (unsigned)e, rx);
+  }
+}
+
+// Frames f = 0 .. frames-1 from the queue (f = gid, lane = f / fpl),
+// generated by the crew into the slot's metric table.
+template <class Nodes>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsigned* nodes,
+               float* tables, unsigned frames, const __grid_constant__ SeqDecoderParams p) {
+  const int T = p.s.T, L = p.s.L, M = p.s.M;
+  Crew c;
+  c.lane = threadIdx.x & 31u;
+  c.set(0xffffffffu);
+  const Nodes n = Nodes::make(nodes, T, c.lane);
+  const Encoder enc = Encoder::make(p.s);
+  const TableMetrics m = {slot_table(tables, T, M, c.lane), (unsigned)M};
+  const size_t lanes = (size_t)p.lanes;
+  unsigned f = frames;   // the frame being walked; none yet
+  Walk w;
+  w.done = true;
   for (;;) {
-    ++*iters;
-    if (!backtrack) {      // SEARCH (fano-decoder.c:183-236)
-      if (timeout == 0) break;
-      --timeout;
-      const size_t c = (size_t)cur * S;
-      const int sel = n.selected[c];
-      const float m_cur = n.nmetric[c];
-      const float ms = m_cur + (sel ? n.tm1[c] : n.tm0[c]);
-      if (ms >= thr) {
-        if (m_cur < thr + kDelta) {   // tighten: closed form of the += DELTA loop
-          int k = (int)floorf((ms - thr) / kDelta);
-          if (ms >= thr + (float)(k + 1) * kDelta) ++k;
-          if (ms < thr + (float)k * kDelta) --k;
-          thr = thr + (float)(k > 0 ? k : 0) * kDelta;
+    unsigned need = __ballot_sync(c.alive, w.done);
+    if (need) __syncwarp(c.alive);   // every lane's records written so far are visible
+    while (need) {
+      const unsigned j = __ffs(need) - 1u;
+      need &= need - 1u;
+      const unsigned fj = __shfl_sync(c.alive, f, j);
+      if (fj < frames) {   // bank lane j's finished frame
+        const Nodes nj = Nodes::make(nodes, T, j);
+        const int deepest = __shfl_sync(c.alive, w.deepest, j);
+        int err = 0;
+        for (int t = c.rank; t < L; t += c.n)
+          err += node_bit(nj, t, deepest) != frame_bit(p.s, fj, t);
+        err = __reduce_add_sync(c.alive, err);
+        if (c.lane == j) {
+          unsigned long long* row = (unsigned long long*)out + fj / (unsigned)p.fpl;
+          if (err) {
+            atomicAdd(row, (unsigned long long)err);
+            atomicAdd(row + lanes, 1ull);
+          }
+          atomicAdd(row + 2 * lanes, (unsigned long long)w.iters);
+          f = atomicAdd(queue, 1u);
         }
-        if (cur + 1 == T) break;
-        const unsigned next = sel ? n.succ1[c] : n.succ0[c];
-        ++cur;
-        n.nstate[cur * S] = next;
-        n.nmetric[cur * S] = ms;
-        fano_node(p, n, fs, is, S, cur, next);
+      } else if (c.lane == j) {
+        f = atomicAdd(queue, 1u);
+      }
+      const unsigned next = __shfl_sync(c.alive, f, j);
+      if (next >= frames) {   // the queue is empty: lane j leaves
+        c.set(c.alive & ~(1u << j));
+        if (c.lane == j) break;
         continue;
       }
-      backtrack = true;
+      crew_gen(p, c, next, slot_table(tables, T, M, j));
+      __syncwarp(c.alive);
+      if (c.lane == j) fano_start(w, n, m, enc, p.timeout);
     }
-    // BACKTRACK (fano-decoder.c:237-264)
-    if (cur > 0 && n.nmetric[(cur - 1) * S] >= thr) {
-      --cur;
-      if (n.selected[cur * S] == 0) {   // take the second branch
-        n.selected[cur * S] = 1;
-        n.decoded[cur * S] ^= 1;
-        backtrack = false;
-      }
-    } else {                            // relax, retry from the best branch
-      thr = thr - kDelta;
-      if (n.selected[cur * S] != 0) {
-        n.selected[cur * S] = 0;
-        n.decoded[cur * S] ^= 1;
-      }
-      backtrack = false;
-    }
+    if (!(c.alive >> c.lane & 1u)) break;
+#pragma unroll 1
+    for (int i = 0; i < kStepsPerVote; ++i)
+      if (!w.done) fano_step(w, n, m, enc, T);
   }
-  return {cur, timeout, n.nmetric[(size_t)cur * S]};
 }
 
-// syms [T][M][lanes] float32 (AWGN) or [T][lanes] int32 (BSC): the datagen
-// writes each frame there before the walk reads it.
-__global__ void __launch_bounds__(CC_SEQ_THREADS)
-fano_mc_kernel(long long* __restrict__ out, int* __restrict__ scratch, void* syms,
-               const __grid_constant__ SeqDecoderParams p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.lanes) return;
-  const size_t S = (size_t)p.lanes;
-  const FanoNodes n = fano_nodes(scratch, lane, S, p.s.T);
-  int* is = (int*)syms + lane;
-  float* fs = (float*)syms + lane;
-  long long berr = 0, ferr = 0, iters = 0;
-  for (int k = 0; k < p.fpl; ++k) {
-    const unsigned gid = (unsigned)lane * (unsigned)p.fpl + (unsigned)k;
-    gen_frame(p.s, gid, fs, is, S, nullptr);
-    fano_decode(p, n, fs, is, S, &iters);
-    int err = 0;
-    for (int t = 0; t < p.s.L; ++t)
-      err += (unsigned)n.decoded[t * S] != frame_bit(p.s, gid, t);
-    berr += err;
-    ferr += err > 0;
-  }
-  out[lane] = berr;
-  out[S + lane] = ferr;
-  out[2 * S + lane] = iters;
-}
-
-// Supplied frames, syms laid out as above with lanes = frames: frame b's
-// decoded bits to bits_out[t][b]; metric, timeout_left and depth of the node
-// where its walk stopped, and its iterations, to [b] of each.
-__global__ void __launch_bounds__(CC_SEQ_THREADS)
+// Supplied frames b = 0 .. p.lanes-1 from the queue: syms [B][T][M]
+// float32 or [B][T] int32; bits_out [B][L]; metric, timeout_left and depth
+// of the node where the walk stopped, and its iterations, to [b] of each.
+// The crew writes a finished frame's bits; the walk computes its metrics
+// from the frame where it lies.
+template <class Nodes>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 fano_decode_kernel(int* __restrict__ bits_out, float* __restrict__ metric,
                    int* __restrict__ timeout_left, int* __restrict__ depth,
-                   long long* __restrict__ iters, int* __restrict__ scratch,
+                   long long* __restrict__ iters, unsigned* __restrict__ queue, unsigned* nodes,
                    const void* syms, const __grid_constant__ SeqDecoderParams p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.lanes) return;
-  const size_t S = (size_t)p.lanes;
-  const FanoNodes n = fano_nodes(scratch, lane, S, p.s.T);
-  long long k = 0;
-  const FanoExit e = fano_decode(p, n, (const float*)syms + lane, (const int*)syms + lane, S,
-                                 &k);
-  for (int t = 0; t < p.s.L; ++t) bits_out[(size_t)t * S + lane] = n.decoded[t * S];
-  metric[lane] = e.metric;
-  timeout_left[lane] = e.timeout_left;
-  depth[lane] = e.depth;
-  iters[lane] = k;
+  const int T = p.s.T, L = p.s.L, M = p.s.M;
+  const unsigned frames = (unsigned)p.lanes;
+  const int words = p.s.soft ? T * M : T;
+  Crew c;
+  c.lane = threadIdx.x & 31u;
+  c.set(0xffffffffu);
+  const Nodes n = Nodes::make(nodes, T, c.lane);
+  const Encoder enc = Encoder::make(p.s);
+  FrameMetrics m = {&p, nullptr};
+  unsigned b = frames;   // the frame being walked; none yet
+  Walk w;
+  w.done = true;
+  for (;;) {
+    unsigned need = __ballot_sync(c.alive, w.done);
+    if (need) __syncwarp(c.alive);   // every lane's records written so far are visible
+    while (need) {
+      const unsigned j = __ffs(need) - 1u;
+      need &= need - 1u;
+      const unsigned bj = __shfl_sync(c.alive, b, j);
+      if (bj < frames) {   // write lane j's finished frame
+        const Nodes nj = Nodes::make(nodes, T, j);
+        const int deepest = __shfl_sync(c.alive, w.deepest, j);
+        int* row = bits_out + (size_t)bj * L;
+        for (int t = c.rank; t < L; t += c.n) row[t] = (int)node_bit(nj, t, deepest);
+        if (c.lane == j) {
+          metric[bj] = w.nm;
+          timeout_left[bj] = w.timeout;
+          depth[bj] = w.cur;
+          iters[bj] = w.iters;
+        }
+      }
+      if (c.lane == j) b = atomicAdd(queue, 1u);
+      const unsigned next = __shfl_sync(c.alive, b, j);
+      if (next >= frames) {   // the queue is empty: lane j leaves
+        c.set(c.alive & ~(1u << j));
+        if (c.lane == j) break;
+        continue;
+      }
+      __syncwarp(c.alive);   // the crew's reads of lane j's records come first
+      if (c.lane == j) {
+        m.fs = (const float*)((const unsigned*)syms + (size_t)next * words);
+        fano_start(w, n, m, enc, p.timeout);
+      }
+    }
+    if (!(c.alive >> c.lane & 1u)) break;
+#pragma unroll 1
+    for (int i = 0; i < kStepsPerVote; ++i)
+      if (!w.done) fano_step(w, n, m, enc, T);
+  }
+}
+
+// The kernel of a plan (node records in shared memory or not), allowed
+// `smem` dynamic shared bytes; null for a plan that is refused.
+template <bool kMc>
+const void* prepare(int shared, int smem) {
+  const void* k;
+  if constexpr (kMc)
+    k = shared ? (const void*)fano_mc_kernel<SharedNodes>
+               : (const void*)fano_mc_kernel<GlobalNodes>;
+  else
+    k = shared ? (const void*)fano_decode_kernel<SharedNodes>
+               : (const void*)fano_decode_kernel<GlobalNodes>;
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return nullptr;
+  return k;
+}
+
+bool bad_geometry(int threads, int blocks, int smem) {
+  return threads < 32 || threads > kMaxThreads || threads % 32 || blocks <= 0 || smem < 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// int32 words of scratch either kernel needs for `lanes` lanes.
-long long cc_fano_scratch_words(int T, int lanes) {
-  return (long long)lanes * T * kFields;
+// For a launch plan of kernel `mc` (1: fano_mc_kernel, 0:
+// fano_decode_kernel) on the current device, node records in shared memory
+// or not (`shared`): info = {resident blocks per SM, SMs, registers per
+// thread, local (stack) bytes per thread}.  Returns a cudaError_t.
+int cc_fano_occupancy(int mc, int shared, int threads, int smem, int* info) {
+  if (bad_geometry(threads, 1, smem)) return (int)cudaErrorInvalidValue;
+  const void* k = mc ? prepare<true>(shared, smem) : prepare<false>(shared, smem);
+  if (!k) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  int dev, blocks, sms;
+  cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = blocks;
+  info[1] = sms;
+  info[2] = a.numRegs;
+  info[3] = (int)a.localSizeBytes;
+  return 0;
 }
 
-// out [3, lanes] int64; scratch of cc_fano_scratch_words int32 words; syms
-// as the kernel takes them.  timeout = timeout_per_bit * T SEARCH steps per
-// frame.  Host arrays: points [M, 2] float32, polys [symlen] uint32.
-// Returns cudaGetLastError().
-int cc_mc_fano(long long* out, int* scratch, void* syms, int lanes, int fpl, unsigned seed,
-               float param, int soft, int snap, int K, int L, int T, int symlen,
+// out [3, lanes] int64, zeroed; queue one uint32, zeroed; nodes: blocks *
+// threads * 4 * T uint32 words (unused when `shared`); tables: blocks *
+// threads * T * M float32.  timeout = timeout_per_bit * T SEARCH steps
+// per frame.  Host arrays: points [M, 2] float32, polys [symlen] uint32.
+// Returns the launch's cudaError_t.
+int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables, int lanes, int fpl,
+               unsigned seed, float param, int soft, int snap, int K, int L, int T, int symlen,
                const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
-               float weight, int correct, int wrong, int timeout, cudaStream_t stream) {
+               float weight, int correct, int wrong, int timeout, int shared, int threads,
+               int blocks, int smem, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, L, T, symlen, points,
                                   polys, qmask, inv_nd);
   if (bad) return bad;
-  if (lanes <= 0 || fpl <= 0 || timeout < 0) return (int)cudaErrorInvalidValue;
+  if (lanes <= 0 || fpl <= 0 || (long long)lanes * fpl >= (1ll << 31) || timeout < 0 ||
+      bad_geometry(threads, blocks, smem))
+    return (int)cudaErrorInvalidValue;
   p.weight = weight;
   p.correct = correct;
   p.wrong = wrong;
   p.timeout = timeout;
   p.lanes = lanes;
   p.fpl = fpl;
-  const dim3 grid((lanes + CC_SEQ_THREADS - 1) / CC_SEQ_THREADS);
-  fano_mc_kernel<<<grid, CC_SEQ_THREADS, 0, stream>>>(out, scratch, syms, p);
-  return (int)cudaGetLastError();
+  const void* k = prepare<true>(shared, smem);
+  if (!k) return (int)cudaErrorInvalidValue;
+  const unsigned frames = (unsigned)lanes * (unsigned)fpl;
+  void* args[] = {&out, &queue, &nodes, &tables, (void*)&frames, &p};
+  return (int)cudaLaunchKernel(k, dim3(blocks), dim3(threads), args, smem, stream);
 }
 
-// Decodes `frames` supplied frames: syms [T][M][frames] float32 distances
-// (soft) or [T][frames] int32 received symbols; bits [L][frames] int32,
+// Decodes `frames` supplied frames: syms [frames][T][M] float32 distances
+// (soft) or [frames][T] int32 received symbols; bits [frames][L] int32,
 // metric [frames] float32, timeout_left and depth [frames] int32, iters
-// [frames] int64; scratch of cc_fano_scratch_words(T, frames) int32 words.
-// Host array: polys [symlen] uint32.  Returns cudaGetLastError().
+// [frames] int64; queue one uint32, zeroed; nodes as for cc_mc_fano.
+// Host array: polys [symlen] uint32.  Returns the launch's cudaError_t.
 int cc_fano_decode(int* bits, float* metric, int* timeout_left, int* depth, long long* iters,
-                   int* scratch, const void* syms, int frames, int soft, int K, int L, int T,
-                   int symlen, const unsigned* polys, unsigned qmask, float weight,
-                   int correct, int wrong, int timeout, cudaStream_t stream) {
+                   unsigned* queue, unsigned* nodes, const void* syms, int frames, int soft,
+                   int K, int L, int T, int symlen, const unsigned* polys, unsigned qmask,
+                   float weight, int correct, int wrong, int timeout, int shared, int threads,
+                   int blocks, int smem, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_supplied_params(&p, soft, K, L, T, symlen, polys, qmask, weight,
                                        correct, wrong, timeout, frames);
   if (bad) return bad;
-  const dim3 grid((frames + CC_SEQ_THREADS - 1) / CC_SEQ_THREADS);
-  fano_decode_kernel<<<grid, CC_SEQ_THREADS, 0, stream>>>(bits, metric, timeout_left, depth,
-                                                          iters, scratch, syms, p);
-  return (int)cudaGetLastError();
+  if (bad_geometry(threads, blocks, smem)) return (int)cudaErrorInvalidValue;
+  const void* k = prepare<false>(shared, smem);
+  if (!k) return (int)cudaErrorInvalidValue;
+  void* args[] = {&bits, &metric, &timeout_left, &depth, &iters, &queue, &nodes, (void*)&syms,
+                  &p};
+  return (int)cudaLaunchKernel(k, dim3(blocks), dim3(threads), args, smem, stream);
 }
 
 }  // extern "C"

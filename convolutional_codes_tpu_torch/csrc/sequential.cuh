@@ -141,6 +141,46 @@ __device__ __forceinline__ unsigned seq_branch(unsigned state, unsigned input,
   return seq_esym(r, p);
 }
 
+// Channel output of symbol t of frame gid, whose expected symbol is esym:
+// out(e, d) for the AWGN distance d of each point e (returns 0), or the
+// BSC received symbol returned (out unused).
+template <class Out>
+__device__ __forceinline__ unsigned gen_symbol(const SeqParams& p, unsigned gid, int t,
+                                               unsigned esym, Out out) {
+  if (!p.soft) {
+    unsigned fmask = 0;
+    for (int k = 0; k < p.symlen; ++k)
+      fmask |= (unsigned)(coord_uniform(gid, (unsigned)t, p.seed, seq_salt(1u + k)) <
+                          p.param) << k;
+    return esym ^ fmask;
+  }
+  const float u0 = coord_uniform(gid, (unsigned)t, p.seed, seq_salt(1u));
+  const float u1 = coord_uniform(gid, (unsigned)t, p.seed, seq_salt(2u));
+  const float r = sqrtf(-2.0f * logf(u0));
+  const float theta = 6.28318530717958647692f * u1;
+  float rxi = p.px[esym] + p.param * (r * cosf(theta));
+  float rxq = p.py[esym] + p.param * (r * sinf(theta));
+  if (p.snap) {  // nearest point by strict-less scan (first wins)
+    float best = 0.0f;
+    int be = 0;
+    for (int e = 0; e < p.M; ++e) {
+      const float di = rxi - p.px[e], dq = rxq - p.py[e];
+      const float d = ((di * di) + (dq * dq)) * p.inv_nd;
+      if (e == 0 || d < best) {
+        best = d;
+        be = e;
+      }
+    }
+    rxi = p.px[be];
+    rxq = p.py[be];
+  }
+  for (int e = 0; e < p.M; ++e) {
+    const float di = rxi - p.px[e], dq = rxq - p.py[e];
+    out(e, ((di * di) + (dq * dq)) * p.inv_nd);
+  }
+  return 0u;
+}
+
 // Write frame gid's channel output: AWGN distances at fs[(t*M + e)*stride]
 // or BSC symbols at is[t*stride]; info bits (tail zero) at bits[t] when
 // bits is not null.
@@ -151,39 +191,10 @@ __device__ inline void gen_frame(const SeqParams& p, unsigned gid, float* fs, in
     const unsigned bit = frame_bit(p, gid, t);
     if (bits) bits[t] = (int)bit;
     reg = (reg >> 1) | (bit << (p.K - 1));
-    const unsigned esym = seq_esym(reg, p);
-    if (!p.soft) {
-      unsigned fmask = 0;
-      for (int k = 0; k < p.symlen; ++k)
-        fmask |= (unsigned)(coord_uniform(gid, (unsigned)t, p.seed, seq_salt(1u + k)) <
-                            p.param) << k;
-      is[(size_t)t * stride] = (int)(esym ^ fmask);
-      continue;
-    }
-    const float u0 = coord_uniform(gid, (unsigned)t, p.seed, seq_salt(1u));
-    const float u1 = coord_uniform(gid, (unsigned)t, p.seed, seq_salt(2u));
-    const float r = sqrtf(-2.0f * logf(u0));
-    const float theta = 6.28318530717958647692f * u1;
-    float rxi = p.px[esym] + p.param * (r * cosf(theta));
-    float rxq = p.py[esym] + p.param * (r * sinf(theta));
-    if (p.snap) {  // nearest point by strict-less scan (first wins)
-      float best = 0.0f;
-      int be = 0;
-      for (int e = 0; e < p.M; ++e) {
-        const float di = rxi - p.px[e], dq = rxq - p.py[e];
-        const float d = ((di * di) + (dq * dq)) * p.inv_nd;
-        if (e == 0 || d < best) {
-          best = d;
-          be = e;
-        }
-      }
-      rxi = p.px[be];
-      rxq = p.py[be];
-    }
-    for (int e = 0; e < p.M; ++e) {
-      const float di = rxi - p.px[e], dq = rxq - p.py[e];
-      fs[((size_t)t * p.M + e) * stride] = ((di * di) + (dq * dq)) * p.inv_nd;
-    }
+    float* row = fs + (size_t)t * p.M * stride;
+    const unsigned rx = gen_symbol(p, gid, t, seq_esym(reg, p),
+                                   [&](int e, float d) { row[e * stride] = d; });
+    if (!p.soft) is[(size_t)t * stride] = (int)rx;
   }
 }
 

@@ -1,16 +1,22 @@
-"""Fano-decoder Monte-Carlo: the CUDA kernel and its plain version.
+"""Fano-decoder Monte-Carlo: the CUDA kernel, its plain version, and the
+launch plan both Fano kernels of ``csrc/fano_mc.cu`` share.
 
 One launch of ``csrc/fano_mc.cu`` runs ``lanes * frames_per_lane``
-frames: lane ``g`` decodes frames ``gid = g * frames_per_lane + k`` with
-the Fano walk, generating each in the thread from the coordinate hash
-(``ops/mc_datagen.py``) and banking its errors.  It replaces the TPU
-kernel ``_fano_mc_kernel`` (fano_mc.py:65) behind ``mc_fano`` (:443).
+frames: frame ``gid = g * frames_per_lane + k`` belongs to lane ``g``; a
+persistent grid takes the frames from a queue, generates each in the
+thread from the coordinate hash (``ops/mc_datagen.py``), decodes it with
+the Fano walk and adds its errors to its lane's counters.  It replaces the
+TPU kernel ``_fano_mc_kernel`` (fano_mc.py:65) behind ``mc_fano`` (:443).
 
 As ``ops/stack_mc.py``: both versions return per-lane int64 counters
 ``[3, lanes]`` (bit errors, frame errors, walk iterations — micro-steps of
 the chained machine, ``ops/fano.py``) instead of the JAX package's totals,
 and the plain version gives the kernel's counters, exactly on BSC and on
 AWGN up to the last-ulp differences of log/sqrt/sin/cos.
+
+:func:`fano_plan` picks, from a frame's length alone, where a walk keeps
+its 16-byte node records (shared memory or device memory) and the threads
+per block.
 
 ``mc_fano`` takes a ``device``: CPU runs :func:`mc_fano_ref`, CUDA launches
 the kernel (counted in ``mc_fano.launches``) or raises.
@@ -19,6 +25,7 @@ the kernel (counted in ``mc_fano.launches``) or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -59,39 +66,121 @@ def mc_fano_ref(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     return out
 
 
+#: shared memory of one H100 SM and the most one block may take, in bytes;
+#: every resident block reserves 1 KB more
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+#: threads per block of any plan (``kMaxThreads`` in ``csrc/fano_mc.cu``),
+#: threads and blocks an SM holds at most
+MAX_THREADS, THREADS_PER_SM, BLOCKS_PER_SM = 128, 2048, 32
+#: threads per block when nothing is in shared memory
+GLOBAL_THREADS = 128
+#: bytes of one node record: {state | selected << 31, nmetric, m0, m1}
+RECORD_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FanoPlan:
+    """Where a Fano walk keeps its node records, and the block it runs in."""
+    threads: int           #: threads per block, a multiple of 32
+    smem_bytes: int        #: dynamic shared memory per block
+    nodes_shared: bool     #: node records in shared memory (else device memory)
+
+
+def _resident_slots(threads: int, per_slot: int) -> int:
+    """Threads one SM holds with blocks of ``threads`` taking ``per_slot``
+    shared bytes each (registers aside)."""
+    blocks = min(BLOCKS_PER_SM, THREADS_PER_SM // threads,
+                 SMEM_PER_SM // (threads * per_slot + SMEM_RESERVED))
+    return blocks * threads
+
+
+def fano_plan(T: int) -> FanoPlan:
+    """The launch plan of a walk over frames of ``T`` nodes.
+
+    Node records (16 bytes a node) go to shared memory exactly when 32
+    slots of them fit one block (T <= 454).  The threads per block are the
+    multiple of 32 up to ``MAX_THREADS`` whose blocks let an SM hold the
+    most slots (ties go to the smaller block).  Longer frames keep their
+    records in device memory, in blocks of ``GLOBAL_THREADS``."""
+    per_slot = RECORD_BYTES * T
+    if 32 * per_slot > SMEM_PER_BLOCK:
+        return FanoPlan(GLOBAL_THREADS, 0, False)
+    fits = [n for n in range(32, MAX_THREADS + 1, 32) if n * per_slot <= SMEM_PER_BLOCK]
+    threads = max(fits, key=lambda n: (_resident_slots(n, per_slot), -n))
+    return FanoPlan(threads, threads * per_slot, True)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = load_library("fano_mc")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.cc_fano_scratch_words.argtypes = [I, I]
-    lib.cc_fano_scratch_words.restype = ctypes.c_longlong
-    lib.cc_mc_fano.argtypes = [P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
-                               I, I, P]
+    lib.cc_fano_occupancy.argtypes = [I, I, I, I, P]
+    lib.cc_fano_occupancy.restype = I
+    lib.cc_mc_fano.argtypes = [P, P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
+                               I, I, I, I, I, I, P]
     lib.cc_mc_fano.restype = I
+    lib.cc_fano_decode.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I,
+                                   I, I, I, I, P]
+    lib.cc_fano_decode.restype = I
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def occupancy(mc: bool, plan: FanoPlan, device_index: int) -> dict:
+    """What the card makes of ``plan`` for the Monte-Carlo kernel (``mc``)
+    or the decoder of supplied frames: resident blocks per SM, SMs,
+    registers and local (stack) bytes per thread."""
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        status = _lib().cc_fano_occupancy(int(mc), int(plan.nodes_shared), plan.threads,
+                                          plan.smem_bytes, ctypes.addressof(info))
+    check_status(status, "fano occupancy")
+    if info[0] < 1:
+        raise RuntimeError(f"fano plan {plan} leaves no block resident on an SM")
+    return {"blocks_per_sm": info[0], "sms": info[1], "registers": info[2],
+            "local_bytes": info[3]}
+
+
+def grid_blocks(mc: bool, plan: FanoPlan, frames: int, device: torch.device) -> int:
+    """Blocks of the persistent grid: every resident block, or fewer when
+    fewer frames than slots are queued."""
+    occ = occupancy(mc, plan, device.index if device.index is not None
+                    else torch.cuda.current_device())
+    return min(occ["sms"] * occ["blocks_per_sm"], -(-frames // plan.threads))
+
+
+def node_scratch(plan: FanoPlan, T: int, slots: int, device) -> torch.Tensor:
+    """Node records of ``slots`` walks in device memory (one placeholder
+    word where the plan keeps them in shared memory)."""
+    return torch.empty(1 if plan.nodes_shared else slots * 4 * T, dtype=torch.int32,
+                       device=device)
+
+
 def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
-            demapper: str, timeout_per_bit: int, device) -> torch.Tensor:
-    lib = _lib()
+            demapper: str, timeout_per_bit: int, device, plan: FanoPlan = None) -> torch.Tensor:
+    """The kernel's launch under ``fano_plan(T)``, or under ``plan`` where a
+    measurement compares plans."""
     T, M = code.num_block_symbols, code.points_per_symbol
-    soft = channel == "awgn"
-    syms = torch.empty((T, M, lanes) if soft else (T, lanes),
-                       dtype=torch.float32 if soft else torch.int32, device=device)
-    scratch = torch.empty(lib.cc_fano_scratch_words(T, lanes), dtype=torch.int32,
-                          device=device)
-    out = torch.empty((3, lanes), dtype=torch.int64, device=device)
+    soft, timeout = channel == "awgn", _timeout(code, timeout_per_bit)
+    plan = plan or fano_plan(T)
+    blocks = grid_blocks(True, plan, lanes * fpl, device)
+    slots = blocks * plan.threads
+    nodes = node_scratch(plan, T, slots, device)
+    tables = torch.empty(slots * T * M, dtype=torch.float32, device=device)
+    out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
+    queue = torch.zeros(1, dtype=torch.int32, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
     with torch.cuda.device(device):
-        status = lib.cc_mc_fano(
-            out.data_ptr(), scratch.data_ptr(), syms.data_ptr(), lanes, fpl,
+        status = _lib().cc_mc_fano(
+            out.data_ptr(), queue.data_ptr(), nodes.data_ptr(), tables.data_ptr(), lanes, fpl,
             int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
             code.constraint_length, code.block_length, T, code.symlen_out,
             points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
             float(code.fano_metric_weight), int(code.fano_bit_metrics[0]),
-            int(code.fano_bit_metrics[1]), _timeout(code, timeout_per_bit),
-            torch.cuda.current_stream().cuda_stream)
+            int(code.fano_bit_metrics[1]), timeout, int(plan.nodes_shared),
+            plan.threads, blocks, plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     check_status(status, "fano_mc")
+    mc_fano.launches += 1
     return out
 
 
@@ -113,13 +202,11 @@ def mc_fano(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     if device.type != "cuda":
         raise ValueError(f"mc_fano runs on CPU or CUDA, got {device}")
     check_args(code, channel, demapper)
-    if lanes <= 0 or frames_per_lane <= 0:
-        raise ValueError(f"need lanes > 0 and frames_per_lane > 0, got "
-                         f"{lanes}, {frames_per_lane}")
-    out = _launch(code, lanes, frames_per_lane, seed, param, channel, demapper,
-                  timeout_per_bit, device)
-    mc_fano.launches += 1
-    return out
+    if lanes <= 0 or frames_per_lane <= 0 or lanes * frames_per_lane >= 2 ** 31:
+        raise ValueError(f"need lanes > 0, frames_per_lane > 0 and fewer than 2^31 "
+                         f"frames, got {lanes}, {frames_per_lane}")
+    return _launch(code, lanes, frames_per_lane, seed, param, channel, demapper,
+                   timeout_per_bit, device)
 
 
 mc_fano.launches = 0

@@ -35,12 +35,11 @@ from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 MAX_SYMLEN = 4
 
 
-def supplied_frames(code: Code, symbols: torch.Tensor, soft: bool) -> torch.Tensor:
-    """Check supplied frames and lay them out as the sequential kernels read
-    them (the counterpart of stack_pallas.py:287 ``pack_syms``): ``soft``
-    ``[B, T, 2^m]`` distances → ``[T, 2^m, B]`` float32, hard ``[B, T]``
-    symbols → ``[T, B]`` int32.  ``soft`` decides the layout and the cast,
-    not the dtype."""
+def check_frames(code: Code, symbols: torch.Tensor, soft: bool) -> None:
+    """Raise ``ValueError`` unless ``symbols`` are supplied frames the
+    sequential kernels take: ``soft`` ``[B >= 1, T, 2^m]`` distances or
+    hard ``[B >= 1, T]`` symbols of a code with symlen_out <= 4, on a CUDA
+    device."""
     if code.symlen_out > MAX_SYMLEN:
         raise ValueError(f"the kernels take symlen_out <= {MAX_SYMLEN}; "
                          f"{code.name} has {code.symlen_out}")
@@ -52,6 +51,15 @@ def supplied_frames(code: Code, symbols: torch.Tensor, soft: bool) -> torch.Tens
                          f"{', '.join(map(str, want))}], got {tuple(symbols.shape)}")
     if symbols.device.type != "cuda":
         raise ValueError(f"the kernels take CUDA tensors, got {symbols.device}")
+
+
+def supplied_frames(code: Code, symbols: torch.Tensor, soft: bool) -> torch.Tensor:
+    """Check supplied frames and lay them out as the stack kernel reads
+    them (the counterpart of stack_pallas.py:287 ``pack_syms``): ``soft``
+    ``[B, T, 2^m]`` distances → ``[T, 2^m, B]`` float32, hard ``[B, T]``
+    symbols → ``[T, B]`` int32.  ``soft`` decides the layout and the cast,
+    not the dtype."""
+    check_frames(code, symbols, soft)
     if soft:
         return symbols.to(torch.float32).permute(1, 2, 0).contiguous()
     return symbols.to(torch.int32).T.contiguous()

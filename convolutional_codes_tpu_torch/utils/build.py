@@ -8,7 +8,10 @@ include no PyTorch header, which keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that every
 product is rounded before it is added, as in the reference's C code; no
-fast-math.
+fast-math.  ``fano_mc.cu`` is also built with ``-Xptxas -v``, whose report
+(registers, stack frame, spills per kernel) is kept in ``build_log``.
+nvcc's messages are kept beside each library, ``lib<name>-<hash>.log``,
+so a library loaded from an earlier build still has its report.
 """
 
 from __future__ import annotations
@@ -30,12 +33,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "--split-compile=0")   # optimise the template instances in parallel
 
+#: flags some libraries take on top of NVCC_FLAGS
+EXTRA_FLAGS = {"fano_mc": ("-Xptxas", "-v")}
+
 #: every kernel library of the package
 LIBRARIES = ("longframe", "fused_chain", "mc_datagen", "stack_mc", "fano_mc",
              "longframe_mc")
 
 #: wall seconds each library took to build in this process (0 when cached)
 build_seconds = {}
+#: nvcc's messages for each library loaded in this process, from its build
+build_log = {}
 
 
 def nvcc_path() -> str:
@@ -55,8 +63,12 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -67,19 +79,23 @@ def _digest(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     out = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+    log = out.with_suffix(".log")
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         t0 = time.time()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name}.cu "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        build_log[name] = proc.stdout + proc.stderr
+        log.write_text(build_log[name])   # before the library: a library has its log
         os.replace(tmp, out)
         build_seconds[name] = time.time() - t0
     else:
         build_seconds.setdefault(name, 0.0)
+        build_log[name] = log.read_text() if log.exists() else ""
     return ctypes.CDLL(str(out))
 
 

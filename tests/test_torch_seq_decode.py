@@ -21,7 +21,8 @@ from convolutional_codes_tpu.models.codebook import get_code as jax_code
 from convolutional_codes_tpu.ops.fano_pallas import fano_decode_pallas
 from convolutional_codes_tpu.ops.stack_pallas import stack_decode_pallas
 from convolutional_codes_tpu_torch.models.codebook import get_code
-from convolutional_codes_tpu_torch.ops import fano, fano_cuda, stack, stack_cuda
+from convolutional_codes_tpu_torch.ops import fano, fano_cuda, fano_mc, stack, stack_cuda
+from convolutional_codes_tpu_torch.ops.stack_mc import count_errors
 from convolutional_codes_tpu_torch.ops import mc_datagen as dg
 from convolutional_codes_tpu_torch.ops.channels import awgn, awgn_sigma, bsc
 from convolutional_codes_tpu_torch.ops.demapper import hard_demap, soft_demap
@@ -139,7 +140,10 @@ def cuda_device():
 def test_cuda_kernels_match_plain(cuda_device):
     """On a card: kernels 9-10 equal the plain machines exactly (bits,
     metric, iterations, every Fano diagnostic) on hash frames of soft and
-    hard codes, some Fano frames timing out."""
+    hard codes, some Fano frames timing out; and kernels 8 and 10 do so at
+    the edges of their launch plan: B < 32, more frames than resident
+    threads, several frames per lane, and frames too long for shared
+    memory (node records in device memory)."""
     for ck, channel, point in ((0, "awgn", 3.0), (0, "bsc", 0.05), (5, "awgn", 3.0),
                                ("wspr-k32", "bsc", 0.02)):
         code = get_code(ck)
@@ -155,3 +159,21 @@ def test_cuda_kernels_match_plain(cuda_device):
         assert torch.equal(bits, bits_r)
         for k in DIAG + ("iters",):
             assert torch.equal(diag[k].to(diag_r[k].dtype), diag_r[k]), k
+    long = get_code(0).replace(name="k3-r12-long", block_length=600)
+    for code, channel, point, tpb, lanes, fpl in ((get_code(0), "bsc", 0.05, 20, 16384, 3),
+                                                  (long, "awgn", 4.0, 5, 64, 2),
+                                                  (long, "bsc", 0.03, 5, 64, 2)):
+        param = float(awgn_sigma(point)) if channel == "awgn" else point
+        soft = channel == "awgn"
+        gids = torch.arange(lanes * fpl, device=cuda_device)
+        bits, syms = dg.frames_cuda(code, gids, 9, param, channel)
+        bits_r, diag_r = fano.fano_machine(code, syms, soft, tpb)
+        for n in (lanes * fpl, 5):
+            got, diag = fano_cuda.fano_decode_cuda(code, syms[:n], soft, tpb, with_diag=True)
+            assert torch.equal(got, bits_r[:n])
+            for k in DIAG + ("iters",):
+                assert torch.equal(diag[k].to(diag_r[k].dtype), diag_r[k][:n]), k
+        own = torch.zeros((3, lanes), dtype=torch.int64, device=cuda_device)
+        count_errors(own, gids // fpl, bits_r, bits, diag_r["iters"])
+        assert torch.equal(fano_mc.mc_fano(code, lanes, fpl, 9, param, channel,
+                                           timeout_per_bit=tpb, device=cuda_device), own)
