@@ -2,13 +2,15 @@
 """Drive the PyTorch/CUDA port (``convolutional_codes_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --wide-longframe DIR   # only kernel 6 at S = 128, 256, from DIR
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch, CUDA, nvcc, Triton;
   2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``
      (one nvcc per source, side by side), and print the ``-Xptxas -v``
      report of the Fano kernels (no spills; kernel 10 with a 0-byte stack
-     frame);
+     frame) and of the long-frame kernels (no spills for S <= 64; kernel
+     6's resident warps per SM for each instance);
   3. kernels against their plain PyTorch versions on the card: the Viterbi
      ACS and traceback kernels on the Viterbi goldens and on random inputs
      (bit-exact), the fused Monte-Carlo kernel on the BSC golden counters
@@ -27,7 +29,10 @@ Phases, each of which raises on failure:
      tie-heavy hard, a two-segment traceback through the carry); the
      long-frame Monte-Carlo kernel against its plain version and against a
      decode of the same stream by the streaming kernels (BSC exact, AWGN at
-     most 1% of lanes different);
+     most 1% of lanes different), also at 1021 lanes and on a 128-state
+     code (thread groups of 4); the traceback kernels on both designs (one walk per frame,
+     segments) at the segment edges, B = 1 and the plan's crossover, in
+     both modes, bit-exact;
   4. the main paths, each with every launch counter reset before and read
      after: (a) the CLI's code-0 AWGN and BSC Viterbi sweeps (fused kernel)
      and the modular chain (ACS + traceback kernels); (b) the CLI's code-0
@@ -51,9 +56,13 @@ Phases, each of which raises on failure:
      shapes: the Monte-Carlo kernel at configs 0 (exact) and 2 (at most 1%
      of lanes different), the streaming wrappers bit for bit at both
      decode shapes, the decoders of supplied frames exactly on every frame
-     of each batch, which their plain machines are timed on.  The Fano
-     kernels also print their launch plan, and kernel 10 is timed again on
-     its slowest frame alone (ns per walk iteration).
+     of each batch, which their plain machines are timed on.  Kernel 6 is
+     also timed at S = 128 and 256 (config 2's shape, thread groups),
+     kernels 2 and 5 on both designs (and segment lengths) where the plan
+     switches, each held against the plain version and printed beside its
+     time before the redesign.  The Fano kernels also print their launch
+     plan, and kernel 10 is timed again on its slowest frame alone (ns per
+     walk iteration).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
@@ -82,6 +91,10 @@ C_CORE_SEQ_BITS_PER_S = {"stack": 1.4e5, "fano": 7.1e3}
 PUBLISHED_BER_8DB = 1.3756e-4    # results/awgn_channel.m, code 0 at 8 dB
 Z_MAX = 4.5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+#: the times of kernels 2, 5 and 6 before their redesign, at phase 5's
+#: shapes (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+BEFORE_MS = {"traceback": 0.0624, "stream_traceback": {128: 5.8450, 1024: 1.5035},
+             "mc_longframe": (15.955, 35.200)}
 #: lane-instructions per cycle and SM (4 schedulers x 32 lanes) and SMs
 LANE_SLOTS_PER_SM, SMS = 128, 132
 #: estimated instructions per walk iteration (not measured: ncu does not
@@ -146,6 +159,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_median_ms(fn, reps: int) -> float:
+    """Median device milliseconds of one ``fn()`` over ``reps`` calls (CUDA
+    events around each call)."""
+    import torch
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in marks]))
+
+
 def print_ptxas(log: str) -> None:
     """The ``-Xptxas -v`` report of the Fano kernels (kernels 8 and 10 for
     each node storage): registers, stack frame and spills.  No instance may
@@ -165,6 +192,52 @@ def print_ptxas(log: str) -> None:
                 f"{kernel[0]} spills: {frame}")
         want = "32" if kernel[1] == "fano_mc_kernel" else "0"
         require(frame.startswith(f"{want} bytes stack frame"), f"{kernel[0]}: {frame}")
+
+
+#: registers of one SM, the largest resident warps and blocks of one SM
+SM_REGISTERS, SM_WARPS, SM_BLOCKS = 65536, 64, 32
+
+
+def resident_warps(regs: int, threads: int) -> int:
+    """Warps per SM that a kernel of ``regs`` registers a thread fits in
+    blocks of ``threads`` (registers are granted 8 a thread at a time)."""
+    per_block = -(-regs // 8) * 8 * threads
+    blocks = min(SM_REGISTERS // per_block, SM_WARPS * 32 // threads, SM_BLOCKS)
+    return blocks * threads // 32
+
+
+def print_ptxas_longframe(logs: dict) -> None:
+    """The ``-Xptxas -v`` report of ``longframe.cu`` (kernels 1, 2, 4, 5:
+    stream ACS, traceback walk, segment maps and fold) and of
+    ``longframe_mc.cu`` (kernel 6, one thread or a group of G threads a
+    lane): registers, stack frame, spills, and for kernel 6 the resident
+    warps per SM in blocks of 128 and the waves of config 2's grid (65,536
+    lanes).  No instance for S <= 64 may spill (the traceback kernels are
+    templated on nwords = S/32 rounded up: nwords <= 2)."""
+    import re
+    spills = []
+    for lib in ("longframe", "longframe_mc"):
+        log = logs.get(lib, "")
+        require(log, f"no -Xptxas -v report of {lib}.cu")
+        instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
+                               r"\S+\n\s*(.*?)\n.*?Used (\d+) registers", log, re.S)
+        require(instances, f"-Xptxas -v of {lib}.cu names no kernel")
+        for mangled, frame, regs in instances:
+            m = re.search(r"\d+([a-z_]+_kernel)(?:I(\w*?)EE|E)", mangled)
+            name, args = m[1], [int(a) for a in re.findall(r"Li(\d+)", m[2] or "")]
+            states = 32 * args[0] if name in ("stream_traceback_kernel", "tb_map_kernel") else (
+                args[0] if args else 0)
+            line = f"ptxas: {name}<{', '.join(map(str, args))}>: {regs} registers, {frame}"
+            if lib == "longframe_mc":
+                group = args[2] if len(args) > 2 else 1
+                warps = resident_warps(int(regs), 128)
+                blocks = 65536 * group // 128
+                line += (f"; {warps} warps per SM, config 2's {blocks} blocks in "
+                         f"{blocks / (warps // 4 * SMS):.2f} waves")
+            print(line)
+            if states <= 64 and not frame.endswith("0 bytes spill stores, 0 bytes spill loads"):
+                spills.append(f"{lib}.cu {name}<{args}>: {frame}")
+    require(not spills, f"instances for S <= 64 spill: {spills}")
 
 
 # ---------------------------------------------------------------- z-check
@@ -555,6 +628,106 @@ def check_longframe_kernels(torch, dev, stats):
         require(mono_diff <= limit, f"{tag} vs whole-stream decode: {mono_diff} lanes differ")
 
 
+def random_decisions(torch, S, T, B, gen):
+    """Uniformly random packed decisions [T, nwords, B] int32 (bits >= S
+    are 0, as the ACS kernel writes them): every survivor path is possible."""
+    words = torch.randint(-2 ** 31, 2 ** 31, (T, (S + 31) // 32, B), generator=gen,
+                          device=gen.device, dtype=torch.int64)
+    if S < 32:
+        words &= (1 << S) - 1
+    return words.to(torch.int32)
+
+
+def check_traceback_designs(torch, dev, stats):
+    """Kernels 5 (from given start states) and 2 (from the first state of
+    least final metric; integer metrics: ties) on both designs, each forced
+    through the plan, against their plain versions, bit for bit: at the
+    segment edges (T = L-1, L, L+1) and at T = 7777, at B = 1 and at the
+    plan's crossover B; and a traceback of two segments chained through
+    the carry on the segment design."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
+
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    L = vc.SEGMENT_ROWS
+    for name in ("k3-75", "nasa-k7", "k9-r12"):
+        code = get_code(name)
+        S = code.num_states
+        for B in (1, vc.frame_walk_min_frames(S)):
+            for T in (L - 1, L, L + 1, 7777):
+                dec = random_decisions(torch, S, T, B, gen)
+                start = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+                fm = torch.randint(0, 3, (S, B), generator=gen, device=dev).to(torch.float32)
+                want = lc.stream_traceback_ref(code, dec, start) + vc.traceback_ref(code, dec, fm)
+                for plan in (vc.TracebackPlan("frame", T), vc.TracebackPlan("segments", L)):
+                    got = (lc.stream_traceback_cuda(code, dec, start, plan)
+                           + vc.traceback_cuda(code, dec, fm, plan))
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    require(same, f"traceback {plan} vs plain {name} B={B} T={T}")
+                    stats["stream_traceback"] = max(stats["stream_traceback"], float(
+                        (got[0] - want[0]).abs().max()))
+                    stats["traceback"] = max(stats["traceback"], float(
+                        (got[2] - want[2]).abs().max()))
+                del dec
+        print(f"traceback designs vs plain {name} (S={S}): per frame and segments of {L}, "
+              f"T in ({L - 1}, {L}, {L + 1}, 7777), B = 1 and the crossover, "
+              "start states and argmin: bit-exact (tolerance 0)")
+        T, B = 7777, 128
+        dec = random_decisions(torch, S, T, B, gen)
+        start = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+        seg = vc.TracebackPlan("segments", L)
+        bits, carry = lc.stream_traceback_cuda(code, dec, start, seg)
+        hi, mid = lc.stream_traceback_cuda(code, dec[T // 2:].contiguous(), start, seg)
+        lo, carry0 = lc.stream_traceback_cuda(code, dec[:T // 2].contiguous(), mid, seg)
+        require(torch.equal(torch.cat([lo, hi]), bits) and torch.equal(carry0, carry)
+                and torch.equal(bits, lc.stream_traceback_ref(code, dec, start)[0]),
+                f"two-segment traceback on the segment design {name}")
+
+
+def k8_code():
+    """A 128-state code (K = 8, rate 1/2, true parity; none of the shipped
+    codes has 128 states) for kernel 6's groups of 4 threads a lane."""
+    from convolutional_codes_tpu_torch.models.codebook import Code
+    return Code(name="k8-r12", symlen_out=2, constraint_length=8, block_length=40,
+                polynomials=(0b10100111, 0b11111001))   # octal (247, 371), d_free 10
+
+
+def check_longframe_lanes(torch, dev, stats):
+    """Kernel 6 at 1021 lanes, which no block of 128 and no thread group
+    divides, with windows of 255 + 2 x 64 = 383 symbols (odd; 319 stored
+    rows, no whole number of packed words), on LONGFRAME_CASES and on a
+    128-state code (groups of 4 threads a lane; k9-r12 has groups of 8),
+    against its plain version and a whole-stream decode by kernels 4-5:
+    BSC exact, AWGN at most 1% of lanes different."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+
+    lanes, W, Wn, nsteps = 1021, 64, 255, 2
+    for ck, channel, point, dem in LONGFRAME_CASES + [("k8-r12", "awgn", 3.0, "soft")]:
+        code = k8_code() if ck == "k8-r12" else get_code(ck)
+        param = float(awgn_sigma(point)) if channel == "awgn" else point
+        kw = dict(channel=channel, demapper=dem, window=Wn, warmup=W)
+        be_r, we_r = fl.mc_longframe_viterbi_ref(code, lanes, nsteps, 7, param, device=dev,
+                                                 **kw)
+        bits, dists = fl.stream_segment_host(code, torch.arange(lanes, device=dev), 7, param,
+                                             channel, -W, 2 * W + nsteps * Wn, dem)
+        mono = payload_errors(torch, code, bits, dists, W, channel == "bsc")
+        limit = 0 if channel == "bsc" else lanes // 100
+        be, we = fl.mc_longframe_viterbi(code, lanes, nsteps, 7, param, device=dev, **kw)
+        diff = int(((be != be_r) | (we != we_r)).sum())
+        mono_diff = int((be != mono).sum())
+        stats["mc_longframe"] = max(stats["mc_longframe"], float(
+            torch.maximum((be - be_r).abs(), (we - we_r).abs()).max()))
+        tag = (f"long-frame kernel {code.name} {channel}/{dem}, "
+               f"{fl.threads_per_lane(code.num_states)} thread(s) a lane")
+        print(f"{tag}, {lanes} lanes: {diff} differ from the plain version, "
+              f"{mono_diff} from the whole-stream decode")
+        require(diff <= limit, f"{tag} vs plain: {diff} lanes differ")
+        require(mono_diff <= limit, f"{tag} vs whole-stream decode: {mono_diff}")
+
+
 def run_main_path(torch, dev, gold, tmp):
     """The CLI's two code-0 sweeps and the modular chain; returns the
     z-checked rows."""
@@ -806,6 +979,10 @@ def measure(torch, dev, card, clock):
     times["acs_forward"] = cuda_ms(lambda: vc.acs_forward_cuda(code, dists, init, False), 20)
     plain["acs_forward"] = cuda_ms(lambda: vc.acs_forward_ref(code, dists, init, False), 3)
     times["traceback"] = cuda_ms(lambda: vc.traceback_cuda(code, dec, fm), 20)
+    designs = {}   # kernel 2 on both designs, timed beside the plan's call above
+    for plan in (vc.TracebackPlan("frame", T), vc.TracebackPlan("segments", 16)):
+        designs[plan] = (vc.traceback_cuda(code, dec, fm, plan),
+                         cuda_ms(lambda: vc.traceback_cuda(code, dec, fm, plan), 20))
     plain["traceback"] = cuda_ms(lambda: vc.traceback_ref(code, dec, fm), 3)
     nw = (S + 31) // 32
     bound = {   # (ms, what bounds it): each input read once, each output written once
@@ -817,6 +994,14 @@ def measure(torch, dev, card, clock):
     for k in ("acs_forward", "traceback"):
         print(f"{k} [{card}]: code 0, B={Bv}: kernel {times[k]:.4f} ms, "
               f"plain {plain[k]:.4f} ms, bound {bound[k][0]:.4f} ms ({bound[k][1]})")
+    want = vc.traceback_ref(code, dec, fm)
+    for plan, (got, pms) in designs.items():
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"traceback (kernel 2) {plan} vs plain at B={Bv}")
+        print(f"traceback [{card}]: code 0, B={Bv}, T={T}, {plan}"
+              f"{' (the plan)' if plan == vc.traceback_plan(Bv, T, S) else ''}: {pms:.4f} ms "
+              f"(before: {BEFORE_MS['traceback']:.4f} ms; bound {bound['traceback'][0]:.4f} ms), "
+              "bits and metric equal to the plain version")
     print(f"mc_chain bound: {bound['mc_chain'][0]:.4f} ms per step (operations)")
     return times, plain, bound
 
@@ -857,7 +1042,8 @@ def iteration_bound_ms(name: str, iters, clock: float) -> float:
 def measure_sequential(torch, dev, card, clock):
     """Kernels 7-8 at full width (8192 lanes, timeout 10000 per bit, warm
     calls, fresh seeds, walls of about 2 s), the plain version at 64 lanes,
-    and each kernel beside its plain version at 256 lanes x 1 frame."""
+    and each kernel (median of 20 launches) beside its plain version at 256
+    lanes x 1 frame."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
     from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano, mc_fano_ref
@@ -909,7 +1095,7 @@ def measure_sequential(torch, dev, card, clock):
     for decoder, (mc, ref) in fns.items():
         name = "mc_" + decoder
         out = mc(code0, 256, 1, 5, sigma8, device=dev)
-        times[name] = cuda_ms(lambda: mc(code0, 256, 1, 5, sigma8, device=dev), 5)
+        times[name] = cuda_median_ms(lambda: mc(code0, 256, 1, 5, sigma8, device=dev), 20)
         ref(code0, 256, 1, 5, sigma8, device=dev)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -918,7 +1104,8 @@ def measure_sequential(torch, dev, card, clock):
         plain[name] = (time.time() - t0) * 1e3
         bound[name] = (iteration_bound_ms(name, out[2], clock), "operations")
         print(f"{name} [{card}]: code 0 AWGN 8 dB, 256 lanes x 1 frame: kernel "
-              f"{times[name]:.4f} ms, plain {plain[name]:.4f} ms, bound {bound[name][0]:.4f} ms "
+              f"{times[name]:.4f} ms (median of 20 launches), plain {plain[name]:.4f} ms, "
+              f"bound {bound[name][0]:.4f} ms "
               f"({int(out[2].sum())} iterations x {INSTR_PER_ITER[name]} instructions)")
     return times, plain, bound
 
@@ -969,7 +1156,7 @@ SUPPLIED_RATES = (("stack", 0, SUPPLIED_FRAMES), ("fano", 0, SUPPLIED_FRAMES),
 
 def measure_supplied(torch, dev, card, clock, stats):
     """Kernels 9-10 at SUPPLIED_RATES' shapes on the modular chain's frames:
-    kernel time (CUDA events), decode-only and chain info bits/s, BER,
+    kernel time (CUDA events, median of 20 launches), decode-only and chain info bits/s, BER,
     iterations, warp divergence (kernel 9) and the bound; the plain machine
     on the same whole batch, timed and held exactly against the kernel.
     Kernel 10 also alone on its slowest frame, and its launch plan."""
@@ -989,7 +1176,8 @@ def measure_supplied(torch, dev, card, clock, stats):
         run = lambda x: decode_supplied(decoder, code, x, True, FANO_TIMEOUT)
         run(d)
         torch.cuda.synchronize()
-        got, ms = cuda_call(lambda: run(d))
+        got = run(d)
+        ms = cuda_median_ms(lambda: run(d), 20)
         iters = got[1]["iters"]
         ber = float((got[0] != bits).sum()) / bits.numel()
         step = make_point_step(code, "awgn", decoder, frames=B, device=dev)
@@ -1016,7 +1204,7 @@ def measure_supplied(torch, dev, card, clock, stats):
         spread = ("" if decoder == "fano"
                   else f", warp divergence {warp_divergence(iters):.3f}")
         print(f"{name} [{card}]: {code.name} AWGN soft 8 dB, B={B}: kernel {ms:.3f} ms per "
-              f"launch, decode {B * L / ms * 1e3:.6e} info bits/s, chain "
+              f"launch (median of 20), decode {B * L / ms * 1e3:.6e} info bits/s, chain "
               f"{chain_bits / chain_s:.6e} "
               f"info bits/s ({chain_s * 1e3:.1f} ms per step), BER {ber:.6e}, iterations "
               f"{int(iters.sum())} (max frame {int(iters.max())}, median "
@@ -1069,7 +1257,9 @@ def measure_longframe(torch, dev, card, clock, stats):
     kernels must match: kernel 6 exactly on BSC (at most 1% of lanes
     different on AWGN), kernels 4-5 bit for bit."""
     from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
     from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
     from convolutional_codes_tpu_torch.ops.fused_longframe import (
         mc_longframe_viterbi, mc_longframe_viterbi_ref)
@@ -1098,12 +1288,13 @@ def measure_longframe(torch, dev, card, clock, stats):
         ms = dt * 1e3 / calls
         ops_ms = (lanes * windows * Tw * longframe_instr_per_symbol(code, channel)
                   / slots * 1e3)
-        nw = (code.num_states + 31) // 32
-        bytes_ms = lanes * windows * Tw * nw * 4 * 2 / HBM_BYTES_PER_S * 1e3
+        rows, nw, _ = fl.decision_scratch_shape(code.num_states, window, 128, lanes)
+        bytes_ms = lanes * windows * rows * nw * 4 * 2 / HBM_BYTES_PER_S * 1e3
         print(f"long-frame config {'02'[n]} [{card}]: kernel 6, {code.name} {channel} "
               f"{point:g}, {lanes} lanes x {windows} windows x {calls} calls: "
               f"{bits / dt:.6e} info bits/s, BER {sum(int(o[0].sum()) for o in outs) / bits:.6e}, "
-              f"{ms:.3f} ms per launch; bound {max(ops_ms, bytes_ms):.3f} ms (operations "
+              f"{ms:.3f} ms per launch (before: {BEFORE_MS['mc_longframe'][n]:.3f} ms); bound "
+              f"{max(ops_ms, bytes_ms):.3f} ms (operations "
               f"{ops_ms:.3f} ms at ~{longframe_instr_per_symbol(code, channel)} instr./symbol "
               f"estimated, decision bytes {bytes_ms:.3f} ms)")
         (be_r, we_r), plain_ms = cuda_call(
@@ -1117,11 +1308,12 @@ def measure_longframe(torch, dev, card, clock, stats):
               f"(plain {int(be_r.sum())})")
         require(diff <= (0 if channel == "bsc" else lanes // 100),
                 f"long-frame kernel vs plain at config {'02'[n]}: {diff} lanes differ")
+        del outs
         if n == 0:
             times["mc_longframe"], plain["mc_longframe"] = ms, plain_ms
             bound["mc_longframe"] = ((ops_ms, "operations") if ops_ms >= bytes_ms
                                      else (bytes_ms, "bytes"))
-        del outs, be_r, we_r
+        del be_r, we_r
 
     code = get_code("nasa-k7")
     S, M, nw = code.num_states, code.points_per_symbol, (code.num_states + 31) // 32
@@ -1156,11 +1348,91 @@ def measure_longframe(torch, dev, card, clock, stats):
               f"fm, decisions, bits and carry {'equal to' if same else 'DIFFERENT from'} the "
               f"plain versions (max |fm diff| {err:g})")
         require(same, f"stream kernels vs plain at B={B}, T={T}")
+        for plan in (vc.TracebackPlan("frame", T), vc.TracebackPlan("segments", 64),
+                     vc.TracebackPlan("segments", 128), vc.TracebackPlan("segments", 256)):
+            got = lc.stream_traceback_cuda(code, dec, start, plan)
+            require(torch.equal(got[0], bits_r) and torch.equal(got[1], carry_r),
+                    f"stream traceback {plan} vs plain at B={B}, T={T}")
+            pms = cuda_ms(lambda: lc.stream_traceback_cuda(code, dec, start, plan), 10)
+            print(f"stream_traceback [{card}] B={B} T={T} {plan}"
+                  f"{' (the plan)' if plan == vc.traceback_plan(B, T, S) else ''}: "
+                  f"{pms:.4f} ms (before: {BEFORE_MS['stream_traceback'][B]:.4f} ms; bound "
+                  f"{b['stream_traceback'][0]:.4f} ms), bits and carry equal to the plain version")
         if n == 0:
             for name in ("stream_acs", "stream_traceback"):
                 times[name], plain[name], bound[name] = k[name], p[name], b[name]
         del d, dec, dec_r
     return times, plain, bound
+
+
+#: kernel 6 at S = 128 and 256 (thread groups of 4 and 8): config 2's
+#: shape and channel (65,536 lanes x 2 windows, AWGN 6 dB) with wider codes
+WIDE_LONGFRAME = (("k8-r12", 65536, 2), ("k9-r12", 65536, 2))
+
+
+def measure_longframe_wide(torch, dev, card, fl, plain: bool):
+    """Kernel 6 of the package ``fl`` (ops.fused_longframe) at
+    WIDE_LONGFRAME, ms per launch (CUDA events, mean of 3 warm calls), the
+    bit errors; with ``plain``, held against the plain version on the same
+    seed (at most 1% of lanes different).  Also run on an older tree of the
+    repo (``--wide-longframe DIR``) to time the layout it had there."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+
+    sigma = float(awgn_sigma(6.0))
+    for ck, lanes, windows in WIDE_LONGFRAME:
+        code = k8_code() if ck == "k8-r12" else get_code(ck)
+        run = lambda seed: fl.mc_longframe_viterbi(code, lanes, windows, seed, sigma,
+                                                   channel="awgn", device=dev)
+        be, we = run(100)
+        ms = cuda_ms(lambda: run(101), 3)
+        layout = (f"{fl.threads_per_lane(code.num_states)} thread(s) a lane"
+                  if hasattr(fl, "threads_per_lane") else "one thread a lane")
+        line = (f"long-frame wide [{card}]: kernel 6, {code.name} (S={code.num_states}) AWGN 6 "
+                f"dB, {lanes} lanes x {windows} windows, {layout}: {ms:.3f} ms per launch, "
+                f"bit errors {int(be.sum())}")
+        if plain:
+            be_r, we_r = fl.mc_longframe_viterbi_ref(code, lanes, windows, 100, sigma,
+                                                     channel="awgn", device=dev)
+            diff = int(((be != be_r) | (we != we_r)).sum())
+            line += (f" (plain {int(be_r.sum())}), {diff}/{lanes} lanes differ from the "
+                     "plain version")
+            require(diff <= lanes // 100, f"long-frame {code.name} vs plain: {diff} lanes differ")
+            del be_r, we_r
+        print(line)
+
+
+def measure_traceback_crossover(torch, dev, card):
+    """Kernel 5 on both designs (forced through the plan) where the plan
+    switches between them: nasa-k7 at B = 1, T = 65,536, and T = 4,096 at
+    B = 1,024 .. 65,536 for S = 4, 32, 64 and 256, each held bit for bit
+    against the plain version on the same random decisions."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shapes = [("nasa-k7", 1, 65536)] + [
+        (name, B, 4096) for name in ("k3-75", "k6-r12", "nasa-k7", "k9-r12")
+        for B in (1024, 4096, 6144, 8192, 16384, 65536)]
+    for name, B, T in shapes:
+        code = get_code(name)
+        S = code.num_states
+        dec = random_decisions(torch, S, T, B, gen)
+        start = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+        want = lc.stream_traceback_ref(code, dec, start)
+        bound = (T * ((S + 31) // 32) + 2 + T) * 4 * B / HBM_BYTES_PER_S * 1e3
+        line = []
+        for plan in (vc.TracebackPlan("frame", T), vc.TracebackPlan("segments", vc.SEGMENT_ROWS)):
+            got = lc.stream_traceback_cuda(code, dec, start, plan)
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                    f"stream traceback {plan} vs plain {name} B={B} T={T}")
+            ms = cuda_ms(lambda: lc.stream_traceback_cuda(code, dec, start, plan), 5)
+            line.append(f"{plan.design} {ms:.4f} ms")
+        print(f"stream_traceback crossover [{card}] {name} (S={S}) B={B} T={T}: "
+              f"{', '.join(line)}; plan: {vc.traceback_plan(B, T, S).design}; bound "
+              f"{bound:.4f} ms (bytes); both equal to the plain version")
+        del dec
 
 
 def main() -> int:
@@ -1170,6 +1442,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--wide-longframe"]:   # kernel 6 at S = 128, 256 of another tree
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+        measure_longframe_wide(torch, torch.device("cuda", 0), card_line(), fl, False)
+        return 0
     sys.path.insert(0, ROOT)
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -1200,6 +1477,7 @@ def main() -> int:
         for name in build.LIBRARIES:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
         print_ptxas(build.build_log.get("fano_mc", ""))
+        print_ptxas_longframe(build.build_log)
 
     wrappers = {"acs_forward": vc.acs_forward_cuda, "traceback": vc.traceback_cuda,
                 "mc_chain": fc.mc_chain_viterbi, "mc_stack": stack_mc.mc_stack,
@@ -1215,6 +1493,8 @@ def main() -> int:
         check_sequential_kernels(torch, dev, stats)
         check_fano_edges(torch, dev, stats)
         check_longframe_kernels(torch, dev, stats)
+        check_traceback_designs(torch, dev, stats)
+        check_longframe_lanes(torch, dev, stats)
         for k, w in wrappers.items():
             require(w.launches > 0, f"kernel {k} was never launched")
         print("launches in the checks: " + ", ".join(
@@ -1261,6 +1541,8 @@ def main() -> int:
                          measure_supplied(torch, dev, card, clock, stats)):
             for d in zip((times, plain, bound), measured):
                 d[0].update(d[1])
+        measure_longframe_wide(torch, dev, card, fl, True)
+        measure_traceback_crossover(torch, dev, card)
         compare_fano_plans(torch, dev, card)
 
     require("jax" not in sys.modules, "the port imported JAX")

@@ -31,14 +31,25 @@
 // chain of T steps stays; each step is a few dozen instructions of one
 // warp instead of 8 S of one thread.
 //
-// stream_traceback.  One thread per frame, T dependent steps, from given
-// start states or from the first state of least final metric (a
+// stream_traceback.  A traceback is T dependent steps per frame, from
+// given start states or from the first state of least final metric (a
 // strict-less scan from state 0, so no library argmin decides a tie).
-// What bounds it is the latency of that chain: the addresses of a row's
-// decision words do not depend on the survivor state, so every word of a
-// group of rows is loaded before the group is walked, and the next group
-// is in flight while the current one is walked (two register buffers of
-// 32 words).
+// One thread per frame walks a whole frame: that is the design where B
+// frames fill the card (the modular chain's B = 262,144 short blocks).
+// The addresses of a row's decision words do not depend on the survivor
+// state, so every word of a group of rows is loaded before the group is
+// walked, and the next group is in flight while the current one is
+// walked (two register buffers of 32 words).  At B = 128 or 1,024 long
+// frames that leaves 4 or 32 warps on the card, each step a dependent
+// select-and-shift (~176 cycles).  A traceback is a function of its end
+// state, so the frame is cut into G segments of L rows exactly: (1) every
+// segment's map {end state -> start state} is computed from all S end
+// states at once, the segment's decisions staged in shared memory; (2) per
+// frame the maps are folded from the last segment back, which gives each
+// segment's true end state; (3) each segment walks its L rows again from
+// that state, as one frame of the per-frame design.  The bits and the
+// carry are the per-frame walk's by construction.  ops/viterbi_cuda.
+// traceback_plan chooses the design and L.
 #include "acs.cuh"
 
 namespace {
@@ -190,20 +201,21 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
 
 constexpr int kTbThreads = 32;
 
-// Rows per group of the traceback: 32 words in flight per buffer.
+// Rows per group of the traceback walk: 32 words in flight per buffer.
 template <int NW>
 struct TbGroup {
   static constexpr int U = 32 / NW;
 };
 
+// Rows t_hi-1-(g*U+u) of a walk down to row t_lo.
 template <int NW>
 __device__ __forceinline__ void tb_load(unsigned (&w)[TbGroup<NW>::U][NW],
-                                        const int* __restrict__ dec, int g, int T, size_t Bs,
-                                        int b) {
+                                        const int* __restrict__ dec, int g, int t_hi, int t_lo,
+                                        size_t Bs, int b) {
 #pragma unroll
   for (int u = 0; u < TbGroup<NW>::U; ++u) {
-    const int t = T - 1 - (g * TbGroup<NW>::U + u);
-    if (t >= 0) {
+    const int t = t_hi - 1 - (g * TbGroup<NW>::U + u);
+    if (t >= t_lo) {
 #pragma unroll
       for (int k = 0; k < NW; ++k) w[u][k] = (unsigned)dec[((size_t)t * NW + k) * Bs + b];
     }
@@ -212,12 +224,13 @@ __device__ __forceinline__ void tb_load(unsigned (&w)[TbGroup<NW>::U][NW],
 
 template <int NW>
 __device__ __forceinline__ void tb_walk(unsigned (&w)[TbGroup<NW>::U][NW],
-                                        int* __restrict__ bits, int g, int T, size_t Bs,
-                                        int b, int K, unsigned half_mask, unsigned& cur) {
+                                        int* __restrict__ bits, int g, int t_hi, int t_lo,
+                                        size_t Bs, int b, int K, unsigned half_mask,
+                                        unsigned& cur) {
 #pragma unroll
   for (int u = 0; u < TbGroup<NW>::U; ++u) {
-    const int t = T - 1 - (g * TbGroup<NW>::U + u);
-    if (t >= 0) {
+    const int t = t_hi - 1 - (g * TbGroup<NW>::U + u);
+    if (t >= t_lo) {
       // select by masks, not by `?:` on the array: a select of two array
       // elements may become a load from a selected address, which moves
       // the buffers to local memory
@@ -230,19 +243,25 @@ __device__ __forceinline__ void tb_walk(unsigned (&w)[TbGroup<NW>::U][NW],
   }
 }
 
+// The walk: thread (frame b, segment blockIdx.y) traces rows [seg L,
+// min(T, (seg+1) L)) back from its end state, start[seg B + b], or, with
+// one segment and no start, from the first state of least final metric.
+// The segment-0 thread writes the carry.
 template <int NW>
 __global__ void __launch_bounds__(kTbThreads)
 stream_traceback_kernel(const int* __restrict__ dec, const int* __restrict__ start,
                         const float* __restrict__ fm, int* __restrict__ bits,
                         int* __restrict__ carry, float* __restrict__ min_metric, int T,
-                        int B, int S, int K) {
+                        int B, int S, int K, int L) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  const int seg = blockIdx.y;
+  const int t_lo = seg * L, t_hi = min(T, t_lo + L);
   const size_t Bs = (size_t)B;
   const unsigned half_mask = (unsigned)(S >> 1) - 1u;
   unsigned cur;
   if (start != nullptr) {
-    cur = (unsigned)start[b];
+    cur = (unsigned)start[(size_t)seg * Bs + b];
   } else {
     // the first state of least final metric, and that metric
     float best = fm[b];
@@ -257,15 +276,111 @@ stream_traceback_kernel(const int* __restrict__ dec, const int* __restrict__ sta
     min_metric[b] = best;
   }
   unsigned wa[TbGroup<NW>::U][NW], wb[TbGroup<NW>::U][NW];
-  const int ng = (T + TbGroup<NW>::U - 1) / TbGroup<NW>::U;
-  tb_load<NW>(wa, dec, 0, T, Bs, b);
+  const int ng = (t_hi - t_lo + TbGroup<NW>::U - 1) / TbGroup<NW>::U;
+  tb_load<NW>(wa, dec, 0, t_hi, t_lo, Bs, b);
   for (int g = 0; g < ng; g += 2) {
-    tb_load<NW>(wb, dec, g + 1, T, Bs, b);
-    tb_walk<NW>(wa, bits, g, T, Bs, b, K, half_mask, cur);
-    tb_load<NW>(wa, dec, g + 2, T, Bs, b);
-    tb_walk<NW>(wb, bits, g + 1, T, Bs, b, K, half_mask, cur);
+    tb_load<NW>(wb, dec, g + 1, t_hi, t_lo, Bs, b);
+    tb_walk<NW>(wa, bits, g, t_hi, t_lo, Bs, b, K, half_mask, cur);
+    tb_load<NW>(wa, dec, g + 2, t_hi, t_lo, Bs, b);
+    tb_walk<NW>(wb, bits, g + 1, t_hi, t_lo, Bs, b, K, half_mask, cur);
   }
-  if (carry != nullptr) carry[b] = (int)cur;
+  if (carry != nullptr && seg == 0) carry[b] = (int)cur;
+}
+
+// Segment maps.  Block (frames b0.., segment seg >= 1) stages the
+// segment's [L, NW, kMapFrames] decision words in shared memory (each
+// row's words of 8 neighbouring frames are one 32-byte sector), then warp f
+// walks frame b0+f back from every end state at once, lane l holding states
+// l, l+32, ..: map[b, seg, s] = the state before row seg L on the path that
+// ends in state s after the segment's last row.  Segment 0's map is never
+// read: its walk gives the carry.
+constexpr int kMapFrames = 8;
+constexpr int kMapThreads = 32 * kMapFrames;
+
+template <int NW>
+__global__ void __launch_bounds__(kMapThreads)
+tb_map_kernel(const int* __restrict__ dec, unsigned char* __restrict__ map, int T, int B,
+              int S, int L, int G) {
+  extern __shared__ unsigned dec_s[];   // [row][word][frame]
+  const int b0 = blockIdx.x * kMapFrames;
+  const int seg = blockIdx.y + 1;
+  const int t_lo = seg * L, n = min(T, t_lo + L) - t_lo;
+  const size_t Bs = (size_t)B;
+  for (int i = threadIdx.x; i < n * NW * kMapFrames; i += kMapThreads) {
+    const int f = i % kMapFrames, w = (i / kMapFrames) % NW, tl = i / (kMapFrames * NW);
+    dec_s[i] = b0 + f < B ? (unsigned)dec[((size_t)(t_lo + tl) * NW + w) * Bs + b0 + f] : 0u;
+  }
+  __syncthreads();
+  const int f = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (b0 + f >= B || lane >= S) return;
+  const unsigned half_mask = (unsigned)(S >> 1) - 1u;
+  unsigned cur[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) cur[k] = (unsigned)(lane + 32 * k);
+  const unsigned* col = dec_s + f;
+#pragma unroll 4
+  for (int tl = n - 1; tl >= 0; --tl) {
+    const unsigned* row = col + tl * NW * kMapFrames;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      const unsigned word = row[(cur[k] >> 5) * kMapFrames];
+      cur[k] = ((cur[k] & half_mask) << 1) | ((word >> (cur[k] & 31u)) & 1u);
+    }
+  }
+  unsigned char* out = map + ((size_t)(b0 + f) * G + seg) * S;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) out[lane + 32 * k] = (unsigned char)cur[k];
+}
+
+// Composition: block b folds frame b's maps from the last segment back.
+// The frame's end state (start[b], or the first state of least final
+// metric, whose metric goes to min_metric) ends segment G-1, and
+// ends[g-1, b] = map[b, g, ends[g, b]].  The maps are staged in shared
+// memory kFoldBytes at a time, so each of the G-1 dependent lookups is a
+// shared-memory load.
+constexpr int kFoldThreads = 256;
+constexpr int kFoldBytes = 16384;
+
+__global__ void __launch_bounds__(kFoldThreads)
+tb_fold_kernel(const unsigned char* __restrict__ map, const int* __restrict__ start,
+               const float* __restrict__ fm, int* __restrict__ ends,
+               float* __restrict__ min_metric, int B, int S, int G) {
+  __shared__ unsigned char m_s[kFoldBytes];
+  __shared__ float fm_s[CC_MAX_STATES];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t Bs = (size_t)B;
+  unsigned cur = 0;
+  if (start != nullptr) {
+    cur = (unsigned)start[b];
+  } else {
+    for (int s = tid; s < S; s += kFoldThreads) fm_s[s] = fm[(size_t)s * Bs + b];
+    __syncthreads();
+    if (tid == 0) {
+      float best = fm_s[0];
+      for (int s = 1; s < S; ++s) {
+        if (fm_s[s] < best) {
+          best = fm_s[s];
+          cur = (unsigned)s;
+        }
+      }
+      min_metric[b] = best;
+    }
+  }
+  if (tid == 0) ends[(size_t)(G - 1) * Bs + b] = (int)cur;
+  const int per = kFoldBytes / S;   // maps per chunk
+  const unsigned char* mb = map + (size_t)b * G * S;
+  for (int hi = G - 1; hi >= 1; hi -= per) {
+    const int lo = max(1, hi - per + 1);
+    __syncthreads();   // the previous chunk has been walked
+    for (int i = tid; i < (hi - lo + 1) * S; i += kFoldThreads) m_s[i] = mb[(size_t)lo * S + i];
+    __syncthreads();
+    if (tid == 0) {
+      for (int g = hi; g >= lo; --g) {
+        cur = m_s[(g - lo) * S + cur];
+        ends[(size_t)(g - 1) * Bs + b] = (int)cur;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -291,17 +406,35 @@ int cc_stream_acs(const float* dists, const float* init, float* fm, int* dec, in
 // dec [T, nwords, B] i32 -> bits [T, B] i32 and carry [B] i32 (the state
 // before row 0; may be null), traced back from start [B] i32 or, when
 // start is null, from the first state of least metric in fm [S, B] f32,
-// whose metric goes to min_metric [B] f32.  Returns cudaGetLastError().
+// whose metric goes to min_metric [B] f32.  L: rows per segment.  With
+// G = ceil(T / L) = 1 each frame is one walk; with G > 1 the segment maps
+// go to map [B, G, S] u8, their composition to ends [G, B] i32, and the
+// G walks per frame start from there (both scratch arrays from the
+// caller).  Returns cudaGetLastError().
 int cc_stream_traceback(const int* dec, const int* start, const float* fm, int* bits,
-                        int* carry, float* min_metric, int T, int B, int S, int K, int nwords,
-                        cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES || nwords != (S + 31) / 32 ||
+                        int* carry, float* min_metric, unsigned char* map, int* ends, int T,
+                        int B, int S, int K, int nwords, int L, cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES || nwords != (S + 31) / 32 || L <= 0 ||
       (start == nullptr && (fm == nullptr || min_metric == nullptr)))
     return cudaErrorInvalidValue;
-  const dim3 grid((B + kTbThreads - 1) / kTbThreads);
-#define CC_LAUNCH_TB(NW_)                                                             \
-  stream_traceback_kernel<NW_><<<grid, kTbThreads, 0, stream>>>(dec, start, fm, bits, carry, \
-                                                                min_metric, T, B, S, K)
+  const int G = (T + L - 1) / L;
+  const size_t map_smem = (size_t)L * nwords * kMapFrames * sizeof(unsigned);
+  if (G > 65535 || (G > 1 && (map == nullptr || ends == nullptr || map_smem > 48 * 1024)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((B + kTbThreads - 1) / kTbThreads, G);
+  const dim3 map_grid((B + kMapFrames - 1) / kMapFrames, G - 1);
+#define CC_LAUNCH_TB(NW_)                                                                 \
+  if (G > 1) {                                                                            \
+    tb_map_kernel<NW_><<<map_grid, kMapThreads, map_smem, stream>>>(dec, map, T, B, S, L, \
+                                                                    G);                   \
+    tb_fold_kernel<<<B, kFoldThreads, 0, stream>>>(map, start, fm, ends, min_metric, B,   \
+                                                   S, G);                                 \
+    stream_traceback_kernel<NW_><<<grid, kTbThreads, 0, stream>>>(                        \
+        dec, ends, nullptr, bits, carry, nullptr, T, B, S, K, L);                         \
+  } else {                                                                                \
+    stream_traceback_kernel<NW_><<<grid, kTbThreads, 0, stream>>>(                        \
+        dec, start, fm, bits, carry, min_metric, T, B, S, K, L);                          \
+  }
   switch (nwords) {
     case 1: CC_LAUNCH_TB(1); break;
     case 2: CC_LAUNCH_TB(2); break;

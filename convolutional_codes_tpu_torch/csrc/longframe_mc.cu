@@ -2,33 +2,58 @@
 //
 // Replaces the TPU kernel convolutional_codes_tpu/ops/fused_longframe.py
 // `_mc_longframe_kernel` (:84, entry mc_longframe_viterbi :223).  Each
-// thread owns one lane: an unterminated coded stream, decoded in nsteps
-// overlap-save windows of Tw = Wn + 2W symbols (W-symbol halos on both
-// sides of a Wn-symbol payload).  Window `win0 + step` covers the stream
-// positions from (win0 + step) * Wn - W on, and the K-1 info bits before
-// them seed the encoder register, so the halos replay the same bits and
-// noise as the neighbouring windows.  Per symbol: the info bit from hash
-// salt 0, the encoder with the compat quirk, then BSC flips of coded bit k
-// from salt 1 + k, or Box-Muller AWGN from salts 1 and 2 and the soft (or
+// lane decodes an unterminated coded stream in nsteps overlap-save windows
+// of Tw = Wn + 2W symbols (W-symbol halos on both sides of a Wn-symbol
+// payload).  Window `win0 + step` covers the stream positions from
+// (win0 + step) * Wn - W on, and the K-1 info bits before them seed the
+// encoder register, so the halos replay the same bits and noise as the
+// neighbouring windows.  Per symbol: the info bit from hash salt 0, the
+// encoder with the compat quirk, then BSC flips of coded bit k from salt
+// 1 + k, or Box-Muller AWGN from salts 1 and 2 and the soft (or
 // snap-then-soft) demapper; then one ACS step from zero start metrics.
 // After Tw steps: the first state of least metric, and the traceback from
 // row Tw-1 down to row W, counting errors on the payload rows only.  The
 // hash is sequential.cuh's coord_bits keyed by the global lane, so the
-// counters do not depend on the CUDA block size.  Only the [2, lanes]
-// counters (bit errors, windows with an error) are results.
+// counters depend neither on the block size nor on the thread group.
+// Only the [2, lanes] counters (bit errors, windows with an error) are
+// results.
 //
-// What bounds it on the H100: per symbol a lane does two or three hashes
-// (plus log/sqrt/sin/cos for AWGN), the encoder, the demapper and about
-// 8 S ACS operations, all dependent along t, and it stores ceil(S/32)
-// decision words that the traceback reads back: Tw * ceil(S/32) words per
-// lane and window (8.7 KB at K=3, 17.4 KB at K=7 for Tw = 2176), too many
-// for registers or shared memory.  So the decisions go to a [Tw, nwords,
-// lanes] device scratch that the wrapper allocates, laid out so that a
-// warp's stores and loads are coalesced; everything else stays in
-// registers (the S metrics; S >= 128 spills to local memory as in
-// fused_chain.cu), and the info bits are regenerated from the hash in the
-// traceback instead of being stored.  It is bound by instruction issue,
-// with the scratch traffic second.
+// What bounds it on the H100: instruction issue.  Per symbol a lane does
+// three hashes (BSC; AWGN adds log/sqrt/sin/cos), the encoder, the
+// demapper and about 20 instructions per state of ACS, all dependent along
+// t; config 0 (k3-75 BSC) issues ~230 instructions per lane and symbol
+// (counted from the source), about one per cycle on each SM quarter.  So
+// the design cuts instructions: a BSC flip compares the draw's integer with a threshold
+// computed on the host (no int-to-float conversion, exactly the plain
+// compare), the expected symbol comes from a 64-bit table of every
+// register where the code is small (k3-75: 8 registers of 2 bits), the
+// loops over the symbol's bits unroll, and the traceback counts errors a
+// 32-bit word at a time against info bits that the forward pass, which
+// draws them anyway, stores (1.5% faster than drawing them again at
+// config 0, PERF.md).  The survivor decisions go to a device scratch that the
+// traceback reads back, [items, words, lanes] so that a warp's stores and
+// loads are coalesced; only the rows the traceback reads are stored
+// (t >= W), and for S < 32 the S decision bits of P = 32 / S rows share
+// one word (k3-75: 8 rows), aligned to multiples of P.  The traceback is a
+// short loop of one row an iteration: the windows' lanes are resident at
+// once and hide its loads, and walks unrolled to load a group of rows
+// ahead were slower at config 0 (PERF.md).
+//
+// The branch metrics of a row go through shared memory: each transition
+// reads its metric at a computed address, one load where a pick from
+// registers took M-1 compares and selects, and the registers the picks
+// held are free (nasa-k7: 164 registers, 12 warps per SM; 255 before).
+// S >= 128 holds too many metrics for one thread (2 S floats spill), so a
+// group of G threads shares a lane there, thread r holding states
+// [r S/G, (r+1) S/G): the butterfly's two predecessors of thread r's
+// states are all held by threads 2 (r mod G/2) and that + 1, whose metrics
+// arrive by warp shuffle; the group draws G symbols at once (thread r the
+// symbol of row t0 + r) into shared memory; the argmin reduces across the
+// group by strict-less value, then lower state, which is the first-state
+// rule.  G = S / 32 (32 states a thread): 1.5x (S = 128) and 3.6x
+// (S = 256) faster than one thread a lane, while groups of 2-8 at S = 64
+// were slower (PERF.md).  Every state's ACS is the same float32
+// expression either way.
 //
 // Exactness: built with -fmad=false, strict-less compares, the same
 // float32 expressions as the plain version; BSC runs carry no
@@ -39,11 +64,27 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct LongframeParams {
   TrellisTables tt;
   SeqParams s;    // seed, channel, constellation, encoder; L = Tw, T = Tw + K - 1
   int W, Wn, Tw, nsteps, win0, lanes;
+  // BSC: coded bit k flips where coord_uniform(..) < param, which is
+  // (coord_bits(..) >> 1) < flip_below (the uniform is monotone in the bits)
+  unsigned flip_below;
+  // the expected symbol of every K-bit register, symlen bits each, where
+  // 2^K symlen <= 64 (esym_packed)
+  unsigned long long esym_tab;
+  int esym_packed;
+};
+
+// Decision scratch layout for S states: items of P rows (S < 32 packs
+// P = 32/S rows per word), NW words each.
+template <int S>
+struct Pack {
+  static constexpr int NW = (S + 31) / 32;
+  static constexpr int P = S < 32 ? 32 / S : 1;
 };
 
 // Info bit of lane `lane` at stream position `pos`.
@@ -62,14 +103,36 @@ __device__ __forceinline__ void dist_vec(const SeqParams& p, float rxi, float rx
   }
 }
 
+// Expected symbol of the K-bit register reg (sequential.cuh's seq_esym with
+// symlen = log2 M known at compile time), from the packed table where the
+// code is small enough.
+template <int M>
+__device__ __forceinline__ unsigned esym_of(const LongframeParams& p, unsigned reg) {
+  constexpr int SL = M == 2 ? 1 : (M == 4 ? 2 : 3);
+  if (p.esym_packed) return (unsigned)(p.esym_tab >> (reg * SL)) & (unsigned)(M - 1);
+  unsigned esym = 0;
+#pragma unroll
+  for (int n = 0; n < SL; ++n) {
+    const unsigned x = reg & p.s.polys[n];
+    unsigned bit = __popc(x) & 1u;
+    if (p.s.qmask) bit &= 1u - (__popc(x & p.s.qmask) & 1u);
+    esym = (esym << 1) | bit;
+  }
+  return esym;
+}
+
 // Branch metrics of the symbol at stream position pos, expected symbol esym.
 template <int M>
-__device__ __forceinline__ void branch_metrics(const SeqParams& p, unsigned lane, unsigned pos,
-                                               unsigned esym, float (&bm)[M]) {
+__device__ __forceinline__ void branch_metrics(const LongframeParams& lp, unsigned lane,
+                                               unsigned pos, unsigned esym, float (&bm)[M]) {
+  const SeqParams& p = lp.s;
   if (!p.soft) {
+    constexpr int SL = M == 2 ? 1 : (M == 4 ? 2 : 3);
     unsigned fmask = 0;
-    for (int k = 0; k < p.symlen; ++k)
-      fmask |= (unsigned)(coord_uniform(lane, pos, p.seed, seq_salt(1u + k)) < p.param) << k;
+#pragma unroll
+    for (int k = 0; k < SL; ++k)
+      fmask |= (unsigned)((coord_bits(lane, pos, p.seed, seq_salt(1u + k)) >> 1) <
+                          lp.flip_below) << k;
     const unsigned rx = esym ^ fmask;
 #pragma unroll
     for (int e = 0; e < M; ++e) bm[e] = (float)__popc(rx ^ (unsigned)e);
@@ -95,66 +158,221 @@ __device__ __forceinline__ void branch_metrics(const SeqParams& p, unsigned lane
   }
 }
 
+// The scratch of one lane: decision item q holds rows t = (q + W/P) P + i,
+// i < P, of the rows W .. Tw-1 (aligned to multiples of P, so a row's word
+// and shift follow from t alone; rows below W in the first item are
+// stored and never read); info word j holds the info bits of rows
+// 32 (j + W/32) .. + 31 (bits outside the payload rows are stored and
+// never counted).
+struct Scratch {
+  unsigned* dec;    // this lane's first decision word (and thread's word of a row)
+  unsigned* info;   // this lane's first info word
+  unsigned iacc = 0;
+};
+
+__device__ __forceinline__ Scratch scratch_start(unsigned* dec, unsigned* info, size_t first,
+                                                 size_t lane) {
+  Scratch sc;
+  sc.dec = dec + first;
+  sc.info = info + lane;
+  return sc;
+}
+
+// The info bit of row t: packed by absolute row, a word stored when its
+// last row is done.
+__device__ __forceinline__ void store_info_bit(const LongframeParams& p, int t, unsigned bit,
+                                               bool owner, Scratch& sc) {
+  sc.iacc |= bit << (t & 31);
+  if ((t & 31) == 31 || t == p.Tw - 1) {
+    const int j = (t >> 5) - (p.W >> 5);
+    if (owner && j >= 0 && (t & ~31) < p.W + p.Wn) sc.info[(size_t)j * p.lanes] = sc.iacc;
+    sc.iacc = 0;
+  }
+}
+
+// One trellis step src -> dst as acs.cuh's acs_step (the same float32
+// expressions, strict-less, hard saturation), the branch metric of each
+// transition read from the thread's column of shared memory, bmcol[e
+// kThreads]: one load at a computed address instead of M-1 compares and
+// selects on registers.
+template <int S, int M>
+__device__ __forceinline__ void acs_step_smem(const float (&src)[S], float (&dst)[S],
+                                              const float* bmcol, bool hard,
+                                              const TrellisTables& tt,
+                                              unsigned (&words)[(S + 31) / 32]) {
+  constexpr int NW = (S + 31) / 32;
+  constexpr int PER = S < 32 ? S : 32;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    unsigned word = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int ns = w * 32 + i;
+      const int j = ns & (S / 2 - 1);
+      float c0 = src[2 * j] + bmcol[tt.esym0[ns] * kThreads];
+      float c1 = src[2 * j + 1] + bmcol[tt.esym1[ns] * kThreads];
+      if (hard) {
+        c0 = fminf(c0, CC_HARD_SAT);
+        c1 = fminf(c1, CC_HARD_SAT);
+      }
+      const bool d = c1 < c0;
+      dst[ns] = d ? c1 : c0;
+      word |= (unsigned)d << i;
+    }
+    words[w] = word;
+  }
+}
+
 // Symbol row t of a window whose row 0 is stream position base: advance the
-// encoder, draw the channel, run one ACS step src -> dst, store decisions.
+// encoder, draw the channel, run one ACS step src -> dst, and store the
+// decisions (rows t >= W; S < 32: packed into acc, shift (t mod P) S, the
+// word stored with its last row) and the info bit.
 template <int S, int M>
 __device__ __forceinline__ void window_step(const LongframeParams& p, unsigned lane,
                                             unsigned base, int t, unsigned& reg,
                                             const float (&src)[S], float (&dst)[S],
-                                            unsigned* __restrict__ scratch) {
-  constexpr int NW = (S + 31) / 32;
+                                            float* bmcol, unsigned& acc, Scratch& sc) {
+  using Pk = Pack<S>;
   const unsigned pos = base + (unsigned)t;
-  reg = (reg >> 1) | (stream_bit(p.s, lane, pos) << (p.s.K - 1));
+  const unsigned bit = stream_bit(p.s, lane, pos);
+  reg = (reg >> 1) | (bit << (p.s.K - 1));
   float bm[M];
-  branch_metrics<M>(p.s, lane, pos, seq_esym(reg, p.s), bm);
-  unsigned words[NW];
-  acs_step<S, M>(src, dst, bm, !p.s.soft, p.tt, words);
+  branch_metrics<M>(p, lane, pos, esym_of<M>(p, reg), bm);
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
-    scratch[((size_t)t * NW + w) * (size_t)p.lanes + lane] = words[w];
+  for (int e = 0; e < M; ++e) bmcol[e * kThreads] = bm[e];
+  unsigned words[Pk::NW];
+  acs_step_smem<S, M>(src, dst, bmcol, !p.s.soft, p.tt, words);
+  const size_t lanes = (size_t)p.lanes;
+  if constexpr (Pk::P > 1) {
+    const int i = t & (Pk::P - 1);
+    acc |= words[0] << (i * S);
+    if (i == Pk::P - 1 || t == p.Tw - 1) {
+      if (t >= p.W) sc.dec[(size_t)(t / Pk::P - p.W / Pk::P) * lanes] = acc;
+      acc = 0;
+    }
+  } else if (t >= p.W) {
+#pragma unroll
+    for (int w = 0; w < Pk::NW; ++w) sc.dec[((size_t)(t - p.W) * Pk::NW + w) * lanes] = words[w];
+  }
+  store_info_bit(p, t, bit, true, sc);
 }
 
+// Traceback state of one window: survivor state, errors, the decoded
+// payload bits of the current 32-row word, and the info words now and
+// next.
+struct WalkState {
+  unsigned cur;
+  int err = 0;
+  unsigned dacc = 0, icur = 0, inext = 0;
+};
+
+// Payload rows t of one 32-row word are done (t = its lowest row walked):
+// count the decoded bits that differ from the stored info bits (loaded a
+// word ahead).
+__device__ __forceinline__ void tb_flush(const LongframeParams& p, int t,
+                                         const unsigned* __restrict__ info, WalkState& ws) {
+  const int j = t >> 5;
+  const int lo = max(p.W, 32 * j) - 32 * j, hi = min(p.W + p.Wn, 32 * j + 32) - 32 * j;
+  const unsigned pmask = (hi == 32 ? ~0u : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+  ws.err += __popc((ws.dacc ^ ws.icur) & pmask);
+  ws.icur = ws.inext;
+  const int jn = j - 2 - (p.W >> 5);
+  ws.inext = jn >= 0 ? info[(size_t)jn * p.lanes] : 0u;
+  ws.dacc = 0;
+}
+
+// The traceback of one window from end state cur: rows Tw-1 down to W, one
+// row an iteration (a short loop: many warps per SM hide the loads, and
+// unrolled walks that load ahead were slower).  Returns the payload bit
+// errors.
+template <int S>
+__device__ __forceinline__ int window_traceback(const LongframeParams& p, unsigned cur,
+                                                const unsigned* __restrict__ dec,
+                                                const unsigned* __restrict__ info) {
+  using Pk = Pack<S>;
+  const size_t lanes = (size_t)p.lanes;
+  const int K = p.s.K;
+  const unsigned half_mask = (unsigned)(S >> 1) - 1u;
+  WalkState ws;
+  ws.cur = cur;
+  const int jt = ((p.W + p.Wn - 1) >> 5) - (p.W >> 5);
+  ws.icur = info[(size_t)jt * lanes];
+  ws.inext = jt >= 1 ? info[(size_t)(jt - 1) * lanes] : 0u;
+  unsigned w[Pk::NW];
+#pragma unroll 1
+  for (int t = p.Tw - 1; t >= p.W; --t) {
+    const int i = t & (Pk::P - 1);
+    if (i == Pk::P - 1 || t == p.Tw - 1) {
+      const unsigned* item = dec + (size_t)(t / Pk::P - p.W / Pk::P) * Pk::NW * lanes;
+#pragma unroll
+      for (int k = 0; k < Pk::NW; ++k) w[k] = item[(size_t)k * lanes];
+    }
+    // select by masks, not by `?:` on the array (keeps w in registers)
+    unsigned word = w[0];
+    if constexpr (Pk::NW > 1) {
+      word = 0;
+#pragma unroll
+      for (int k = 0; k < Pk::NW; ++k)
+        word |= w[k] & (0u - (unsigned)((ws.cur >> 5) == (unsigned)k));
+    }
+    const unsigned d = (word >> (i * S + (ws.cur & 31u))) & 1u;
+    if (t < p.W + p.Wn) {
+      ws.dacc |= (ws.cur >> (K - 2)) << (t & 31);
+      if ((t & 31) == 0 || t == p.W) tb_flush(p, t, info, ws);
+    }
+    ws.cur = ((ws.cur & half_mask) << 1) | d;
+  }
+  return ws.err;
+}
+
+// Stream position of row 0 of window `step` (mod 2^32, as the TPU
+// kernel's int32 positions wrap), and the encoder register before it.
+__device__ __forceinline__ unsigned window_base(const LongframeParams& p, unsigned lane,
+                                                int step, unsigned& reg) {
+  const unsigned base = (unsigned)(p.win0 + step) * (unsigned)p.Wn - (unsigned)p.W;
+  const int K = p.s.K;
+  reg = 0;
+  for (int j = 0; j < K - 1; ++j)   // the K-1 lead-in bits
+    reg = (reg >> 1) | (stream_bit(p.s, lane, base - (unsigned)(K - 1 - j)) << (K - 1));
+  return base;
+}
+
+// One thread per lane, all S metrics in registers.  S <= 8 is compiled for
+// 8 blocks per SM (at most 64 registers; left free, ptxas spilled the
+// S = 4, M = 8 instance at 56), S = 16 for 6 (80 registers: the S = 16,
+// M = 2 instance spilled at 64).
 template <int S, int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, S <= 8 ? 8 : (S == 16 ? 6 : 1))
 mc_longframe_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
-                    const __grid_constant__ LongframeParams p) {
-  constexpr int NW = (S + 31) / 32;
+                    unsigned* __restrict__ info, const __grid_constant__ LongframeParams p) {
+  __shared__ float bm_s[M * kThreads];   // [e][thread]: the row's branch metrics
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= p.lanes) return;
   const unsigned lane = (unsigned)g;
-  const int K = p.s.K;
-  const unsigned half_mask = (unsigned)(S >> 1) - 1u;
+  float* bmcol = bm_s + threadIdx.x;
   int errs = 0, werrs = 0;
 
   for (int step = 0; step < p.nsteps; ++step) {
-    // symbol row t is stream position base + t (mod 2^32, as the TPU
-    // kernel's int32 positions wrap)
-    const unsigned base = (unsigned)(p.win0 + step) * (unsigned)p.Wn - (unsigned)p.W;
-    unsigned reg = 0;
-    for (int j = 0; j < K - 1; ++j)   // the K-1 lead-in bits
-      reg = (reg >> 1) | (stream_bit(p.s, lane, base - (unsigned)(K - 1 - j)) << (K - 1));
+    unsigned reg;
+    const unsigned base = window_base(p, lane, step, reg);
+    Scratch sc = scratch_start(scratch, info, lane, lane);
     float ma[S], mb[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) ma[s] = 0.0f;   // uniform start: the left halo warms up
+    unsigned acc = 0;
     int t = 0;
     for (; t + 1 < p.Tw; t += 2) {
-      window_step<S, M>(p, lane, base, t, reg, ma, mb, scratch);
-      window_step<S, M>(p, lane, base, t + 1, reg, mb, ma, scratch);
+      window_step<S, M>(p, lane, base, t, reg, ma, mb, bmcol, acc, sc);
+      window_step<S, M>(p, lane, base, t + 1, reg, mb, ma, bmcol, acc, sc);
     }
     unsigned cur;
     if (t < p.Tw) {
-      window_step<S, M>(p, lane, base, t, reg, ma, mb, scratch);
+      window_step<S, M>(p, lane, base, t, reg, ma, mb, bmcol, acc, sc);
       cur = argmin_state<S>(mb);
     } else {
       cur = argmin_state<S>(ma);
     }
-    // rows below W only lead into the left halo: the walk stops at row W
-    int err = 0;
-    for (t = p.Tw - 1; t >= p.W; --t) {
-      const unsigned word = scratch[((size_t)t * NW + (cur >> 5)) * (size_t)p.lanes + lane];
-      if (t < p.W + p.Wn) err += (int)((cur >> (K - 2)) != stream_bit(p.s, lane, base + t));
-      cur = ((cur & half_mask) << 1) | ((word >> (cur & 31u)) & 1u);
-    }
+    const int err = window_traceback<S>(p, cur, scratch + lane, info + lane);
     errs += err;
     werrs += err > 0;
   }
@@ -162,23 +380,210 @@ mc_longframe_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
   out[(size_t)p.lanes + g] = werrs;
 }
 
+// One ACS step of a lane's group: thread r holds states r SPT + k, k < SPT;
+// the row's branch metrics are read from the group's row in shared memory.
+template <int S, int M, int G>
+__device__ __forceinline__ void group_acs_step(const float (&src)[S / G], float (&dst)[S / G],
+                                               const float* bmrow, bool hard,
+                                               const unsigned (&esp)[(S / G + 3) / 4],
+                                               int pred_lane, unsigned& dbits) {
+  constexpr int SPT = S / G;
+  float pr[2 * SPT];   // metrics of states 2 (r mod G/2) SPT .. + 2 SPT
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    pr[i] = __shfl_sync(kFull, src[i], pred_lane);
+    pr[SPT + i] = __shfl_sync(kFull, src[i], pred_lane + 1);
+  }
+  unsigned word = 0;
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const unsigned e = (esp[k / 4] >> (8 * (k % 4))) & 0xFFu;
+    float c0 = pr[2 * k] + bmrow[e & 15u];
+    float c1 = pr[2 * k + 1] + bmrow[e >> 4];
+    if (hard) {
+      c0 = fminf(c0, CC_HARD_SAT);
+      c1 = fminf(c1, CC_HARD_SAT);
+    }
+    const bool d = c1 < c0;   // strict: ties keep branch 0
+    dst[k] = d ? c1 : c0;
+    word |= (unsigned)d << k;
+  }
+  dbits = word;
+}
+
+// Row t of the group: ACS src -> dst with the row's branch metrics bmrow
+// (shared memory), then the decision word assembled across the threads
+// that share it and stored by the first of them, and the info bit (stored
+// by thread 0).
+template <int S, int M, int G>
+__device__ __forceinline__ void group_row(const LongframeParams& p, bool valid, int rg, int t,
+                                          unsigned bit, const float (&src)[S / G],
+                                          float (&dst)[S / G], const float* bmrow,
+                                          const unsigned (&esp)[(S / G + 3) / 4],
+                                          int pred_lane, Scratch& sc) {
+  constexpr int SPT = S / G;
+  constexpr int SHARE = 32 / SPT;   // threads whose bits make one word
+  unsigned dbits;
+  group_acs_step<S, M, G>(src, dst, bmrow, !p.s.soft, esp, pred_lane, dbits);
+  unsigned word = SPT == 32 ? dbits : dbits << ((rg * SPT) & 31);
+#pragma unroll
+  for (int off = 1; off < SHARE; off <<= 1) word |= __shfl_xor_sync(kFull, word, off);
+  if (valid && t >= p.W && ((rg * SPT) & 31) == 0)
+    sc.dec[(size_t)(t - p.W) * Pack<S>::NW * p.lanes] = word;
+  store_info_bit(p, t, bit, valid && rg == 0, sc);
+}
+
+// First state of least metric among thread rg's states rg SPT + k.
+template <int SPT>
+__device__ __forceinline__ void thread_argmin(const float (&m)[SPT], int rg, float& best,
+                                              unsigned& cur) {
+  best = m[0];
+  cur = (unsigned)(rg * SPT);
+#pragma unroll
+  for (int k = 1; k < SPT; ++k) {
+    if (m[k] < best) {
+      best = m[k];
+      cur = (unsigned)(rg * SPT + k);
+    }
+  }
+}
+
+// G = S / 32 threads per lane (S >= 128), compiled for 2 blocks of 128 per
+// SM (at most 255 registers).  The group draws G rows' symbols at once,
+// thread r row t0 + r, and leaves their branch metrics in shared memory
+// ([row][group][e] per warp, no bank conflicts); all G threads walk the
+// traceback (the same loads), thread 0 writes the counters.
+template <int S, int M, int G>
+__global__ void __launch_bounds__(kThreads, 2)
+mc_longframe_group_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
+                          unsigned* __restrict__ info,
+                          const __grid_constant__ LongframeParams p) {
+  constexpr int SPT = S / G;
+  static_assert(G >= 2 && SPT == 32 && 32 % G == 0, "group layout");
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  const int rg = gt % G;                       // thread within the group
+  const unsigned lane = (unsigned)(gt / G);
+  const bool valid = lane < (unsigned)p.lanes;  // whole groups are valid or not
+  __shared__ float bm_s[kThreads * M];
+  const int warp_lane = threadIdx.x & 31;
+  const int group_lane = warp_lane - rg;
+  const int pred_lane = group_lane + 2 * (rg % (G / 2));
+  // this group's row k of the warp's branch metrics: bm_g + k (32/G) M
+  const float* bm_g = bm_s + (threadIdx.x & ~31) * M + (warp_lane / G) * M;
+  float* bm_mine = bm_s + (threadIdx.x & ~31) * M + (rg * (32 / G) + warp_lane / G) * M;
+  unsigned esp[(SPT + 3) / 4];
+#pragma unroll
+  for (int i = 0; i < (SPT + 3) / 4; ++i) esp[i] = 0;
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const int ns = rg * SPT + k;
+    esp[k / 4] |= ((unsigned)p.tt.esym0[ns] | ((unsigned)p.tt.esym1[ns] << 4)) << (8 * (k % 4));
+  }
+  const int K = p.s.K;
+  int errs = 0, werrs = 0;
+
+  for (int step = 0; step < p.nsteps; ++step) {
+    unsigned reg;
+    const unsigned base = window_base(p, lane, step, reg);
+    Scratch sc = scratch_start(scratch, info, ((size_t)(rg * SPT) >> 5) * p.lanes + lane, lane);
+    float ma[SPT], mb[SPT];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) ma[k] = 0.0f;
+    for (int t0 = 0; t0 < p.Tw; t0 += G) {
+      // thread rg draws row t0 + rg (rows past Tw are drawn and unused)
+      const unsigned pos = base + (unsigned)(t0 + rg);
+      const unsigned mybit = stream_bit(p.s, lane, pos);
+      const unsigned gb = (__ballot_sync(kFull, mybit != 0u) >> group_lane) & ((1u << G) - 1u);
+      unsigned myreg = 0;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        reg = (reg >> 1) | (((gb >> i) & 1u) << (K - 1));
+        myreg = i == rg ? reg : myreg;
+      }
+      float bmr[M];
+      branch_metrics<M>(p, lane, pos, esym_of<M>(p, myreg), bmr);
+      __syncwarp();   // the last chunk's rows are read
+#pragma unroll
+      for (int e = 0; e < M; ++e) bm_mine[e] = bmr[e];
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < G; k += 2) {
+        if (t0 + k < p.Tw)
+          group_row<S, M, G>(p, valid, rg, t0 + k, (gb >> k) & 1u, ma, mb,
+                             bm_g + k * (32 / G) * M, esp, pred_lane, sc);
+        if (t0 + k + 1 < p.Tw)
+          group_row<S, M, G>(p, valid, rg, t0 + k + 1, (gb >> (k + 1)) & 1u, mb, ma,
+                             bm_g + (k + 1) * (32 / G) * M, esp, pred_lane, sc);
+      }
+    }
+    // first state of least metric: within the thread, then across the
+    // group by (metric, state), both strict
+    float best;
+    unsigned cur;
+    if (p.Tw & 1)
+      thread_argmin<SPT>(mb, rg, best, cur);
+    else
+      thread_argmin<SPT>(ma, rg, best, cur);
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      const float ob = __shfl_xor_sync(kFull, best, off);
+      const unsigned oc = __shfl_xor_sync(kFull, cur, off);
+      if (ob < best || (ob == best && oc < cur)) {
+        best = ob;
+        cur = oc;
+      }
+    }
+    if (valid) {
+      const int err = window_traceback<S>(p, cur, scratch + lane, info + lane);
+      errs += err;
+      werrs += err > 0;
+    }
+  }
+  if (valid && rg == 0) {
+    out[lane] = errs;
+    out[(size_t)p.lanes + lane] = werrs;
+  }
+}
+
+// The instances: one thread per lane up to S = 64, groups of S / 32
+// threads from S = 128.
+template <int S, int M>
+int launch_longframe(dim3 grid, cudaStream_t stream, int* out, unsigned* scratch,
+                     unsigned* info, const LongframeParams& p) {
+  if constexpr (S <= 64)
+    mc_longframe_kernel<S, M><<<grid, kThreads, 0, stream>>>(out, scratch, info, p);
+  else
+    mc_longframe_group_kernel<S, M, S / 32><<<grid, kThreads, 0, stream>>>(out, scratch, info,
+                                                                         p);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // out [2, lanes] int32 (bit errors, windows with an error, per lane);
-// scratch [Tw, ceil(S/32), lanes] 32-bit words, Tw = Wn + 2W.  Host arrays:
-// esym_prev [S, 2] int32, points [M, 2] float32, polys [symlen] uint32.
-// Returns cudaGetLastError().
-int cc_mc_longframe(int* out, unsigned* scratch, int lanes, int nsteps, int win0, int W,
-                    int Wn, unsigned seed, float param, int soft, int snap, int K, int symlen,
-                    const int* esym_prev, const float* points, const unsigned* polys,
-                    unsigned qmask, float inv_nd, cudaStream_t stream) {
+// scratch: the decision rows t >= W, Tw = Wn + 2W, as [ceil(Tw / P) -
+// floor(W / P), ceil(S/32), lanes] 32-bit words, P = max(1, 32 / S) rows a
+// word, item q holding rows (q + floor(W / P)) P ..; info: the info bits
+// of rows 32 (j + floor(W / 32)) .. + 31 as word j of [floor((W + Wn - 1)
+// / 32) - floor(W / 32) + 1, lanes].  flip_below: a BSC coded bit flips
+// where its draw's 31-bit integer is below it
+// (ops/fused_longframe.flip_threshold).  group: threads per lane, which
+// must be 1 up to S = 64 and S / 32 from S = 128
+// (ops/fused_longframe.threads_per_lane).  Host arrays: esym_prev
+// [S, 2] int32, points [M, 2] float32, polys [symlen] uint32.  Returns
+// cudaGetLastError().
+int cc_mc_longframe(int* out, unsigned* scratch, unsigned* info, int lanes, int nsteps,
+                    int win0, int W, int Wn, unsigned seed, float param, int soft, int snap,
+                    int K, int symlen, const int* esym_prev, const float* points,
+                    const unsigned* polys, unsigned qmask, float inv_nd, unsigned flip_below,
+                    int group, cudaStream_t stream) {
   const int S = 1 << (K - 1);
   const int M = 1 << symlen;
   const int Tw = Wn + 2 * W;
   if (lanes <= 0 || nsteps < 0 || W < 0 || Wn <= 0 || S > CC_MAX_STATES ||
-      M > CC_MAX_POINTS)
+      M > CC_MAX_POINTS || info == nullptr || group != (S <= 64 ? 1 : S / 32))
     return cudaErrorInvalidValue;
   LongframeParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, Tw, Tw + K - 1, symlen,
@@ -191,11 +596,29 @@ int cc_mc_longframe(int* out, unsigned* scratch, int lanes, int nsteps, int win0
   p.nsteps = nsteps;
   p.win0 = win0;
   p.lanes = lanes;
-  const dim3 grid((lanes + kThreads - 1) / kThreads);
+  p.flip_below = flip_below;
+  p.esym_tab = 0;
+  p.esym_packed = (1 << K) * symlen <= 64;
+  if (p.esym_packed) {
+    for (unsigned reg = 0; reg < (1u << K); ++reg) {
+      unsigned esym = 0;
+      for (int n = 0; n < symlen; ++n) {
+        const unsigned x = reg & polys[n];
+        unsigned bit = (unsigned)__builtin_parity(x);
+        if (qmask) bit &= 1u - (unsigned)__builtin_parity(x & qmask);
+        esym = (esym << 1) | bit;
+      }
+      p.esym_tab |= (unsigned long long)esym << (reg * symlen);
+    }
+  }
+  const long long threads = (long long)lanes * group;
+  const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+  int status = 0;
 #define CC_LAUNCH_LONGFRAME(S_, M_) \
-  mc_longframe_kernel<S_, M_><<<grid, kThreads, 0, stream>>>(out, scratch, p)
+  status = launch_longframe<S_, M_>(grid, stream, out, scratch, info, p)
   CC_DISPATCH(S, M, CC_LAUNCH_LONGFRAME)
 #undef CC_LAUNCH_LONGFRAME
+  if (status) return status;
   return (int)cudaGetLastError();
 }
 

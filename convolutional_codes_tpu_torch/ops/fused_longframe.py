@@ -22,9 +22,13 @@ hash runs in int64 masked to 32 bits (``utils/bitops.py``).
 the TPU kernel ``_mc_longframe_kernel`` (fused_longframe.py:84) behind
 ``mc_longframe_viterbi`` (:223); it takes a ``device``: CPU runs
 :func:`mc_longframe_viterbi_ref`, CUDA launches the kernel (counted in
-``mc_longframe_viterbi.launches``) or raises.  BSC counters agree exactly
-between the two; AWGN counters up to the last-ulp differences of
-log/sqrt/sin/cos between math libraries.
+``mc_longframe_viterbi.launches``) or raises.  The kernel's decision
+scratch holds only the rows its traceback reads, packed for S < 32
+(:func:`decision_scratch_shape`), the payload's info bits stored beside it
+(:func:`info_scratch_shape`); :func:`threads_per_lane` says how many
+threads share a lane.  BSC counters agree exactly between the two; AWGN
+counters up to the last-ulp differences of log/sqrt/sin/cos between math
+libraries.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import ctypes
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
@@ -164,11 +169,56 @@ def mc_longframe_viterbi_ref(code: Code, lanes: int, nsteps: int, seed, param,
     return errs, werrs
 
 
+def flip_threshold(param: float) -> int:
+    """The least 31-bit integer b whose uniform ``b * 2^-31 + 2^-32`` (float32,
+    as :func:`coord_uniform`) is not below ``param``: a BSC coded bit flips
+    exactly where its draw's ``bits >> 1`` is below it, as the uniform is
+    non-decreasing in b.  2^31 where every draw flips."""
+    p = np.float32(param)
+    lo, hi = 0, 1 << 31
+    while lo < hi:   # the least b with u(b) >= p, by bisection
+        mid = (lo + hi) // 2
+        u = np.float32(mid) * np.float32(2.0 ** -31) + np.float32(2.0 ** -32)
+        if u >= p:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def decision_scratch_shape(num_states: int, window: int, warmup: int,
+                           lanes: int) -> Tuple[int, int, int]:
+    """Shape of the kernel's decision scratch, ``(items, words per item,
+    lanes)`` of 32-bit words: the rows the traceback reads, t >= W of the
+    ``window + 2 warmup``, ``ceil(S/32)`` words each; for S < 32, ``P = 32 /
+    S`` rows share one word, aligned to multiples of P: item ``q`` holds
+    rows ``(q + W // P) P + i`` in bits ``i S ..``."""
+    per_word = 32 // num_states if num_states < 32 else 1
+    Tw = window + 2 * warmup
+    return -(-Tw // per_word) - warmup // per_word, -(-num_states // 32), lanes
+
+
+def info_scratch_shape(window: int, warmup: int, lanes: int) -> Tuple[int, int]:
+    """Shape of the stored info bits, 32 rows a word aligned to multiples of
+    32: word ``j`` holds rows ``32 (j + W // 32) + i`` in bit ``i``, from
+    the word of row W to the word of the last payload row W + window - 1."""
+    return (warmup + window - 1) // 32 - warmup // 32 + 1, lanes
+
+
+def threads_per_lane(num_states: int) -> int:
+    """Threads that share a lane's states in the kernel: one up to S = 64,
+    ``S / 32`` from S = 128 (32 states a thread).  At 65,536 lanes x 2
+    windows the groups beat one thread a lane 1.5x at S = 128 and 3.6x at
+    S = 256, and groups of 2-8 lost to it at S = 64 (PERF.md)."""
+    return 1 if num_states <= 64 else num_states // 32
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = load_library("longframe_mc")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.cc_mc_longframe.argtypes = [P, P, I, I, I, I, I, U, F, I, I, I, I, P, P, P, U, F, P]
+    lib.cc_mc_longframe.argtypes = [P, P, P, I, I, I, I, I, U, F, I, I, I, I, P, P, P, U, F,
+                                    U, I, P]
     lib.cc_mc_longframe.restype = I
     return lib
 
@@ -203,20 +253,25 @@ def mc_longframe_viterbi(code: Code, lanes: int, nsteps: int, seed, param,
                            "for the plain version)")
     from convolutional_codes_tpu_torch.ops.mc_datagen import seq_params  # imports this module
 
-    Tw = _check_args(code, channel, demapper, window, warmup)
+    _check_args(code, channel, demapper, window, warmup)
     if lanes <= 0 or nsteps < 0:
         raise ValueError(f"need lanes > 0 and nsteps >= 0, got {lanes}, {nsteps}")
     tables = code_tables(code, device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
-    scratch = torch.empty((Tw, tables.nwords, lanes), dtype=torch.int32, device=device)
+    scratch = torch.empty(decision_scratch_shape(code.num_states, window, warmup, lanes),
+                          dtype=torch.int32, device=device)
+    info = torch.empty(info_scratch_shape(window, warmup, lanes), dtype=torch.int32,
+                       device=device)
     out = torch.empty((2, lanes), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         status = _lib().cc_mc_longframe(
-            out.data_ptr(), scratch.data_ptr(), lanes, int(nsteps), int(win0), warmup,
-            window, int(seed) & MASK32, float(param), int(channel == "awgn"),
-            int(demapper == "hard"), code.constraint_length, code.symlen_out,
-            tables.esym_prev_np.ctypes.data, points.ctypes.data, polys.ctypes.data, qmask,
-            inv_nd, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), scratch.data_ptr(), info.data_ptr(),
+            lanes, int(nsteps), int(win0), warmup, window, int(seed) & MASK32, float(param),
+            int(channel == "awgn"), int(demapper == "hard"), code.constraint_length,
+            code.symlen_out, tables.esym_prev_np.ctypes.data, points.ctypes.data,
+            polys.ctypes.data, qmask, inv_nd,
+            flip_threshold(param) if channel == "bsc" else 0,
+            threads_per_lane(code.num_states), torch.cuda.current_stream().cuda_stream)
     check_status(status, "mc_longframe_viterbi")
     mc_longframe_viterbi.launches += 1
     return out[0], out[1]

@@ -22,14 +22,14 @@ raises.  Each wrapper counts its launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.viterbi import traceback_carry
 from convolutional_codes_tpu_torch.ops.viterbi_cuda import (
-    _acs, _runs_plain, _traceback, acs_forward_ref)
+    TracebackPlan, _acs, _runs_plain, _traceback, acs_forward_ref)
 
 
 #: Plain version of :func:`stream_acs_cuda`: the plain ACS scan, as for
@@ -61,15 +61,18 @@ def stream_acs_cuda(code: Code, dists_tmb: torch.Tensor, init_sb: torch.Tensor,
 stream_acs_cuda.launches = 0
 
 
-def stream_traceback_cuda(code: Code, decisions: torch.Tensor, start: torch.Tensor
+def stream_traceback_cuda(code: Code, decisions: torch.Tensor, start: torch.Tensor,
+                          plan: Optional[TracebackPlan] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Traceback over packed ``[T, nwords, B]`` int32 decisions from the
     ``[B]`` int32 start states.  Returns (bits [T, B] int32, state before
     row 0 [B] int32): tracing rows [T/2, T) and then rows [0, T/2) from the
-    carry gives the bits of one whole traceback."""
+    carry gives the bits of one whole traceback.  ``plan``: the kernel's
+    design (default ``viterbi_cuda.traceback_plan``: segments of a frame
+    side by side at few long frames; the plain version ignores it)."""
     if _runs_plain(decisions, "stream_traceback_cuda"):
         return stream_traceback_ref(code, decisions, start)
-    out = _traceback(code, decisions, start, None, "stream_traceback_cuda")
+    out = _traceback(code, decisions, start, None, "stream_traceback_cuda", plan)
     stream_traceback_cuda.launches += 1
     return out
 

@@ -8,8 +8,9 @@ include no PyTorch header, which keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that every
 product is rounded before it is added, as in the reference's C code; no
-fast-math.  ``fano_mc.cu`` is also built with ``-Xptxas -v``, whose report
-(registers, stack frame, spills per kernel) is kept in ``build_log``.
+fast-math.  ``fano_mc.cu``, ``longframe.cu`` and ``longframe_mc.cu`` are
+also built with ``-Xptxas -v``, whose report (registers, stack frame,
+spills per kernel) is kept in ``build_log``.
 nvcc's messages are kept beside each library, ``lib<name>-<hash>.log``,
 so a library loaded from an earlier build still has its report.
 """
@@ -34,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--split-compile=0")   # optimise the template instances in parallel
 
 #: flags some libraries take on top of NVCC_FLAGS
-EXTRA_FLAGS = {"fano_mc": ("-Xptxas", "-v")}
+EXTRA_FLAGS = {name: ("-Xptxas", "-v") for name in ("fano_mc", "longframe", "longframe_mc")}
 
 #: every kernel library of the package
 LIBRARIES = ("longframe", "fused_chain", "mc_datagen", "stack_mc", "fano_mc",
