@@ -3,19 +3,26 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide-longframe DIR   # only kernel 6 at S = 128, 256, from DIR
+    python3 chip_smoke.py --kernel-times DIR     # only kernels 1, 3, 4 and 6, from DIR
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch, CUDA, nvcc, Triton;
   2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``
      (one nvcc per source, side by side), and print the ``-Xptxas -v``
      report of the Fano kernels (no spills; kernel 10 with a 0-byte stack
-     frame) and of the long-frame kernels (no spills for S <= 64; kernel
-     6's resident warps per SM for each instance);
+     frame), of the fused chain and of the long-frame kernels (no spills
+     for S <= 64; kernels 3 and 6's resident warps per SM for each
+     instance); read the SASS (``cuobjdump -sass``) of kernel 3's code-0
+     instance (instructions per symbol: this build's issue time, printed
+     in phase 5 beside the bound) and of kernel 4's nasa-k7 instance
+     (instructions a trellis step);
   3. kernels against their plain PyTorch versions on the card: the Viterbi
      ACS and traceback kernels on the Viterbi goldens and on random inputs
      (bit-exact), the fused Monte-Carlo kernel on the BSC golden counters
-     and against its plain version (BSC exact, AWGN at most 1% of lanes
-     different — log/sqrt/sin/cos differ in the last ulp); the stack and
+     and against its plain version (BSC exact, also at 2^20 lanes on codes
+     0, 1 and 5; AWGN at most 1% of lanes different — log/sqrt/sin/cos
+     differ in the last ulp), and its sincosf against the pair sinf, cosf
+     on 2^24 of its Box-Muller angles (bit-exact); the stack and
      Fano decoders of supplied frames on every stack/Fano golden
      (bit-exact); the stack and Fano Monte-Carlo kernels per lane against
      their plain versions (exact on the kernels' own frames, the plain
@@ -26,7 +33,8 @@ Phases, each of which raises on failure:
      Fano kernels at the edges of their launch plan (more frames than
      resident threads; frames too long for shared memory), exact; the streaming
      ACS and traceback wrappers against their plain versions (bit-exact, soft and
-     tie-heavy hard, a two-segment traceback through the carry); the
+     tie-heavy hard, odd T, S = 4 .. 256, a two-segment traceback through the
+     carry); the
      long-frame Monte-Carlo kernel against its plain version and against a
      decode of the same stream by the streaming kernels (BSC exact, AWGN at
      most 1% of lanes different), also at 1021 lanes and on a 128-state
@@ -62,7 +70,18 @@ Phases, each of which raises on failure:
      switches, each held against the plain version and printed beside its
      time before the redesign.  The Fano kernels also print their launch
      plan, and kernel 10 is timed again on its slowest frame alone (ns per
-     walk iteration).
+     walk iteration).  Kernels 1, 3 and 4 print their times beside those
+     before their redesign (BEFORE_MS); kernel 3 its bound (the function's
+     operations, LANE_OPS) beside this build's issue time (its SASS count),
+     kernel 4 its time at B = 1 (one frame: one warp's dependent chain
+     alone, which is what B = 128 runs on each SM) and its SASS
+     instructions a step.
+
+``--kernel-times DIR`` times kernels 1, 3, 4 and 6 at phase 5's shapes
+(kernel 4 also soft and hard at S = 64, and at every S from 4 to 256),
+each of kernels 1 and 4 held against its plain version, with the package
+under DIR (e.g. a ``git archive`` of an older commit unpacked in
+``.scratch/``), to compare designs across commits in one call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
@@ -91,10 +110,14 @@ C_CORE_SEQ_BITS_PER_S = {"stack": 1.4e5, "fano": 7.1e3}
 PUBLISHED_BER_8DB = 1.3756e-4    # results/awgn_channel.m, code 0 at 8 dB
 Z_MAX = 4.5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-#: the times of kernels 2, 5 and 6 before their redesign, at phase 5's
-#: shapes (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+#: the times of kernels before their last redesign, at phase 5's shapes
+#: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
+#: kernels 2, 5 and 6, and kernels 1, 3 (ms per MC step; the headline in
+#: info bits/s) and 4
 BEFORE_MS = {"traceback": 0.0624, "stream_traceback": {128: 5.8450, 1024: 1.5035},
-             "mc_longframe": (15.955, 35.200)}
+             "mc_longframe": (15.955, 35.200), "acs_forward": 0.1061,
+             "mc_chain": 0.5826, "headline": 7.198802e10,
+             "stream_acs": {128: 3.6587, 1024: 1.5473}}
 #: lane-instructions per cycle and SM (4 schedulers x 32 lanes) and SMs
 LANE_SLOTS_PER_SM, SMS = 128, 132
 #: estimated instructions per walk iteration (not measured: ncu does not
@@ -207,16 +230,18 @@ def resident_warps(regs: int, threads: int) -> int:
 
 
 def print_ptxas_longframe(logs: dict) -> None:
-    """The ``-Xptxas -v`` report of ``longframe.cu`` (kernels 1, 2, 4, 5:
+    """The ``-Xptxas -v`` report of ``fused_chain.cu`` (kernel 3, an
+    instance per channel mode), ``longframe.cu`` (kernels 1, 2, 4, 5:
     stream ACS, traceback walk, segment maps and fold) and of
     ``longframe_mc.cu`` (kernel 6, one thread or a group of G threads a
-    lane): registers, stack frame, spills, and for kernel 6 the resident
-    warps per SM in blocks of 128 and the waves of config 2's grid (65,536
-    lanes).  No instance for S <= 64 may spill (the traceback kernels are
-    templated on nwords = S/32 rounded up: nwords <= 2)."""
+    lane): registers, stack frame, spills, and for kernels 3 and 6 the
+    resident warps per SM in blocks of 128 (and the waves of kernel 6's
+    config 2 grid, 65,536 lanes).  No instance for S <= 64 may spill (the
+    traceback kernels are templated on nwords = S/32 rounded up: nwords <=
+    2).  Kernel 3's stack frame is its decision and info-bit arrays."""
     import re
     spills = []
-    for lib in ("longframe", "longframe_mc"):
+    for lib in ("fused_chain", "longframe", "longframe_mc"):
         log = logs.get(lib, "")
         require(log, f"no -Xptxas -v report of {lib}.cu")
         instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
@@ -224,7 +249,8 @@ def print_ptxas_longframe(logs: dict) -> None:
         require(instances, f"-Xptxas -v of {lib}.cu names no kernel")
         for mangled, frame, regs in instances:
             m = re.search(r"\d+([a-z_]+_kernel)(?:I(\w*?)EE|E)", mangled)
-            name, args = m[1], [int(a) for a in re.findall(r"Li(\d+)", m[2] or "")]
+            name = m[1]
+            args = [int(a) for a in re.findall(r"L[ib](\d+)", m[2] or "")]
             states = 32 * args[0] if name in ("stream_traceback_kernel", "tb_map_kernel") else (
                 args[0] if args else 0)
             line = f"ptxas: {name}<{', '.join(map(str, args))}>: {regs} registers, {frame}"
@@ -234,10 +260,131 @@ def print_ptxas_longframe(logs: dict) -> None:
                 blocks = 65536 * group // 128
                 line += (f"; {warps} warps per SM, config 2's {blocks} blocks in "
                          f"{blocks / (warps // 4 * SMS):.2f} waves")
+            elif name == "mc_chain_kernel":
+                line += f"; {resident_warps(int(regs), 128)} warps per SM"
             print(line)
             if states <= 64 and not frame.endswith("0 bytes spill stores, 0 bytes spill loads"):
                 spills.append(f"{lib}.cu {name}<{args}>: {frame}")
     require(not spills, f"instances for S <= 64 spill: {spills}")
+
+
+def sass_functions(lib) -> dict:
+    """``cuobjdump -sass`` of a built library: {mangled kernel name: [(address,
+    instruction text)]}, branch targets as addresses."""
+    import re
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    funcs, labels = {}, {}
+    code, pending = None, []
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            code = funcs.setdefault(m[1], [])
+            labels[m[1]] = {}
+            continue
+        m = re.match(r"\s*(\.L\w+):", line)   # a label: the next instruction's address
+        if m:
+            pending.append(m[1])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and code is not None:
+            labels[next(reversed(labels))].update((name, int(m[1], 16)) for name in pending)
+            pending = []
+            code.append((int(m[1], 16), m[2]))
+    for name, code in funcs.items():   # targets written as labels, `(.L_x_3)
+        code[:] = [(addr, re.sub(r"`\((\.L\w+)\)",
+                                 lambda mm: hex(labels[name].get(mm[1], -1)), text))
+                   for addr, text in code]
+    return funcs
+
+
+def sass_function(funcs: dict, pattern: str) -> tuple:
+    """(the match, the code) of the one function whose mangled name matches
+    the regular expression ``pattern``."""
+    import re
+    found = [(m, code) for n, code in funcs.items() for m in [re.search(pattern, n)] if m]
+    require(len(found) == 1, f"SASS: {len(found)} functions match {pattern}")
+    return found[0]
+
+
+def sass_op(text: str) -> tuple:
+    """(guard, opcode with modifiers, its base, operands) of one instruction."""
+    guard = ""
+    if text.startswith("@"):
+        guard, text = text.split(None, 1)
+    op, _, rest = text.partition(" ")
+    return guard, op, op.split(".")[0], [o.strip() for o in rest.split(",")] if rest else []
+
+
+def sass_loops(code: list, opcode: str) -> list:
+    """The ranges (lo, hi) of the backward branches whose body holds
+    ``opcode`` (a base opcode, or one with modifiers), innermost first."""
+    import re
+    loops = set()
+    for addr, text in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if m and int(m[1], 16) <= addr:
+            loops.add((int(m[1], 16), addr))
+    return sorted((r for r in loops
+                   if any(opcode in (o[1], o[2]) for o in map(sass_op, sass_body(code, *r)))),
+                  key=lambda r: r[1] - r[0])
+
+
+def sass_body(code: list, lo: int, hi: int) -> list:
+    return [text for addr, text in code if lo <= addr <= hi]
+
+
+def sass_always(code: list, lo: int, hi: int) -> int:
+    """The instructions of the loop [lo, hi] that every iteration issues:
+    those that no forward branch inside the loop can skip (a lower bound of
+    what an iteration issues: the skipped regions hold the slow paths of
+    sqrtf and sincosf and the work of some iterations only)."""
+    import re
+    skipped = set()
+    for addr, text in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if m and lo <= addr <= hi and addr < int(m[1], 16) <= hi + 16:
+            skipped.update(a for a, _ in code if addr < a < int(m[1], 16))
+    return sum(lo <= addr <= hi and addr not in skipped for addr, _ in code)
+
+
+def read_sass(build) -> dict:
+    """From the SASS of the built libraries, what this build issues (the
+    kernels' bounds count the function's own work, not these): kernel 3's
+    instructions per symbol (code 0: S = 4, M = 4, AWGN soft), what its
+    forward loop issues every symbol plus what its traceback loop issues
+    every row (sass_always); kernel 4's instructions a trellis step
+    (nasa-k7: S = 64, M = 4, its unrolled soft step loop)."""
+    out = {}
+    _, code = sass_function(sass_functions(build.library_path("fused_chain")),
+                            r"mc_chain_kernelILi4ELi4ELi1E")
+    fwd = sass_loops(code, "MUFU.RSQ")[0]              # one sqrtf a symbol
+    tb = next(r for r in sass_loops(code, "POPC")       # the error count a word
+              if r[1] < fwd[0] or r[0] > fwd[1])
+    body, tbody = sass_body(code, *fwd), sass_body(code, *tb)
+    per_iter = sum(sass_op(t)[1] == "MUFU.RSQ" for t in body)
+    always, tb_always = sass_always(code, *fwd), sass_always(code, *tb)
+    rows = 8   # the traceback walks a packed word (32 / S rows) an iteration
+    out["mc_chain_instr"] = always / per_iter + tb_always / rows
+    print(f"SASS mc_chain_kernel<4, 4, soft>: forward loop {len(body)} instructions for "
+          f"{per_iter} symbols ({always} issued every iteration), traceback loop "
+          f"{len(tbody)} for {rows} rows ({tb_always} every iteration): "
+          f"{out['mc_chain_instr']:.1f} instructions every symbol issues")
+    _, code = sass_function(sass_functions(build.library_path("longframe")),
+                            r"stream_acs_kernelILi64ELi4ELb0EE")
+    # the unrolled step loop: the innermost loop with the most ballots,
+    # preferring one without the hard mode's saturation (FMNMX)
+    loops = sass_loops(code, "VOTE")
+    inner = [r for r in loops if not any(o != r and r[0] <= o[0] and o[1] <= r[1] for o in loops)]
+    soft = [r for r in inner
+            if not any(sass_op(t)[2] == "FMNMX" for t in sass_body(code, *r))] or inner
+    lo, hi = max(soft, key=lambda r: sum(sass_op(t)[2] == "VOTE" for t in sass_body(code, *r)))
+    body = sass_body(code, lo, hi)
+    steps = sum(sass_op(t)[2] == "VOTE" for t in body) // 2   # two ballots a step
+    out["stream_acs_instr"] = sass_always(code, lo, hi) / steps
+    print(f"SASS stream_acs_kernel<64, 4>: step loop {len(body)} instructions for {steps} "
+          f"steps, {out['stream_acs_instr']:.1f} issued every step")
+    return out
 
 
 # ---------------------------------------------------------------- z-check
@@ -317,11 +464,12 @@ def check_viterbi_kernels(torch, dev, stats):
 
 def check_fused_kernel(torch, dev, stats):
     """Kernel 3: BSC goldens exactly, kernel against plain exactly on BSC,
-    and at most 1% of lanes different on AWGN."""
+    and at most 1% of lanes different on AWGN; its sincosf bit for bit
+    against the pair sinf, cosf on its own angles."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
     from convolutional_codes_tpu_torch.ops.fused_chain import (
-        mc_chain_viterbi, mc_chain_viterbi_ref)
+        mc_chain_viterbi, mc_chain_viterbi_ref, sincos_mismatches)
 
     gold = np.load(os.path.join(GOLDENS, "fused_interp_counters.npz"))
     s6, s4 = float(awgn_sigma(6.0)), float(awgn_sigma(4.0))
@@ -357,9 +505,16 @@ def check_fused_kernel(torch, dev, stats):
     for ck, dm, p in ((0, "soft", s6), (0, "hard", s6), (5, "soft", s4),
                       ("nasa-k7", "soft", s4)):
         compare(get_code(ck), 8192, 2, 7, p, "awgn", dm)
-    # at the main path's shape: 2^20 lanes, tile 1024
-    compare(get_code(0), 1 << 20, 1, 5, 0.0125, "bsc", "soft")
+    # at the main path's shape: 2^20 lanes, tile 1024; codes 1 (the compat
+    # quirk) and 5 (M = 8) through the register table too
+    for ck in (0, 1, 5):
+        compare(get_code(ck), 1 << 20, 1, 5, 0.0125, "bsc", "soft")
     compare(get_code(0), 1 << 20, 1, 5, float(awgn_sigma(8.0)), "awgn", "soft")
+    n = 1 << 24
+    ds, dc = sincos_mismatches(n, 5, dev)
+    print(f"sincosf vs sinf, cosf on {n} Box-Muller angles 2 pi u (salt 2): {ds} sines and "
+          f"{dc} cosines differ")
+    require(ds == 0 and dc == 0, "sincosf differs from the pair sinf, cosf")
 
 
 SEQ_PHASE3 = {  # (code, channel, point, demapper[, timeout_per_bit]); 1024 lanes x 2
@@ -568,12 +723,14 @@ def check_longframe_kernels(torch, dev, stats):
 
     g = torch.Generator(device=dev).manual_seed(2025)
     B = 128
-    for name in ("k3-75", "nasa-k7", "k9-r12"):
-        code = get_code(name)
+    # every S from 4 to 256: the step is pipelined from S = 8 to 64
+    for name in ("k3-75", "k4-r12", "k5-r12", "k6-r12", "nasa-k7", "k8-r12", "k9-r12"):
+        code = k8_code() if name == "k8-r12" else get_code(name)
         M, S = code.points_per_symbol, code.num_states
-        # soft from random start metrics at T = 8192; tie-heavy hard integer
-        # metrics from the pinned start at T = 7777 (not a power of two)
-        for hard, T in ((False, 8192), (True, 7777)):
+        # soft from random start metrics at T = 8192 and 4097 (odd, not a
+        # whole number of chunks); tie-heavy hard integer metrics from the
+        # pinned start at T = 7777
+        for hard, T in ((False, 8192), (True, 7777), (False, 4097)):
             if hard:
                 d = torch.randint(0, code.symlen_out + 1, (T, M, B), generator=g,
                                   device=dev).to(torch.float32)
@@ -600,8 +757,8 @@ def check_longframe_kernels(torch, dev, stats):
             stats["stream_acs"] = max(stats["stream_acs"], err)
             stats["stream_traceback"] = max(stats["stream_traceback"],
                                             float((bits - bits_r).abs().max()))
-        print(f"stream kernels vs plain {name} (S={S}, B={B}): soft T=8192 and hard T=7777 "
-              "bit-exact, two-segment traceback through the carry equal (tolerance 0)")
+        print(f"stream kernels vs plain {name} (S={S}, B={B}): soft T=8192 and 4097, hard "
+              "T=7777 bit-exact, two-segment traceback through the carry equal (tolerance 0)")
 
     lanes, W, Wn, nsteps = 1024, 128, 256, 3
     for ck, channel, point, dem in LONGFRAME_CASES:
@@ -926,9 +1083,10 @@ def check_points(results, gold, row="ber_coded_a"):
                 f"{channel} point {r.point}: BER {r.ber:.4e}, z={ztxt}")
 
 
-def measure(torch, dev, card, clock):
-    """Headline throughput and each kernel's time beside its plain version
-    and its bound."""
+def measure(torch, dev, card, clock, sass):
+    """Headline throughput and each kernel's time beside its plain version,
+    its bound and its time before its last redesign (``sass``: read_sass's
+    counts)."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
@@ -955,9 +1113,10 @@ def measure(torch, dev, card, clock):
     times["mc_chain"] = dt * 1e3 / (calls * nsteps)
     print(f"headline [{card}]: fused kernel, code 0 at 8 dB, {B} lanes x {nsteps} "
           f"steps x {calls} calls: {rate:.6e} info bits/s "
-          f"({rate / C_CORE_BITS_PER_S:.1f}x the 6.6e6 C core), "
-          f"BER {ber:.6e} vs published {PUBLISHED_BER_8DB:.4e}, "
-          f"{times['mc_chain']:.3f} ms per step")
+          f"({rate / C_CORE_BITS_PER_S:.1f}x the 6.6e6 C core; before: "
+          f"{BEFORE_MS['headline']:.6e}), BER {ber:.6e} vs published "
+          f"{PUBLISHED_BER_8DB:.4e}, {times['mc_chain']:.4f} ms per step (before: "
+          f"{BEFORE_MS['mc_chain']:.4f} ms)")
 
     mc_chain_viterbi_ref(code, B, 1, 1, sigma, device=dev)         # warm-up
     torch.cuda.synchronize()
@@ -988,12 +1147,15 @@ def measure(torch, dev, card, clock):
     bound = {   # (ms, what bounds it): each input read once, each output written once
         "acs_forward": ((T * M + 2 * S + T * nw) * 4 * Bv / HBM_BYTES_PER_S * 1e3, "bytes"),
         "traceback": ((T * nw + S + T + 1) * 4 * Bv / HBM_BYTES_PER_S * 1e3, "bytes"),
-        # ~150 lane-instructions per trellis symbol (PERF.md section 5 estimate)
-        "mc_chain": (B * T * 150 / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3, "operations"),
+        # the operations per trellis symbol of the function (LANE_OPS)
+        "mc_chain": (B * T * mc_chain_ops_per_symbol(code)
+                     / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3, "operations"),
     }
     for k in ("acs_forward", "traceback"):
-        print(f"{k} [{card}]: code 0, B={Bv}: kernel {times[k]:.4f} ms, "
-              f"plain {plain[k]:.4f} ms, bound {bound[k][0]:.4f} ms ({bound[k][1]})")
+        before = BEFORE_MS[k]
+        print(f"{k} [{card}]: code 0, B={Bv}: kernel {times[k]:.4f} ms (before: "
+              f"{before:.4f} ms), plain {plain[k]:.4f} ms, bound {bound[k][0]:.4f} ms "
+              f"({bound[k][1]})")
     want = vc.traceback_ref(code, dec, fm)
     for plan, (got, pms) in designs.items():
         require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
@@ -1002,8 +1164,40 @@ def measure(torch, dev, card, clock):
               f"{' (the plan)' if plan == vc.traceback_plan(Bv, T, S) else ''}: {pms:.4f} ms "
               f"(before: {BEFORE_MS['traceback']:.4f} ms; bound {bound['traceback'][0]:.4f} ms), "
               "bits and metric equal to the plain version")
-    print(f"mc_chain bound: {bound['mc_chain'][0]:.4f} ms per step (operations)")
+    issue_ms = B * T * sass["mc_chain_instr"] / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3
+    print(f"mc_chain bound: {bound['mc_chain'][0]:.4f} ms per step (operations: "
+          f"{mc_chain_ops_per_symbol(code):.1f} per symbol, LANE_OPS); issue time of "
+          f"this build {issue_ms:.4f} ms ({sass['mc_chain_instr']:.1f} SASS instructions every "
+          f"symbol issues); kernel {times['mc_chain']:.4f} ms, "
+          f"{bound['mc_chain'][0] / times['mc_chain']:.1%} of the bound")
     return times, plain, bound
+
+
+#: operations of one lane's trellis symbol in kernel 3's function, counted
+#: from the algorithm and not from a build: a counter hash (lowbias32 twice,
+#: 3 shifts, 3 xors and 2 multiplies each, the index's multiply-add and the
+#: salt's xor), a uniform from its bits (shift, convert, multiply, add), one
+#: ACS state (two branch-metric reads, two adds, a compare, a select, the
+#: decision bit), one traceback row (the survivor bit, the decoded bit, the
+#: next state), and Box-Muller's logf, sqrtf and sincosf at the lengths of
+#: their single-precision fast paths (estimated: about 20, 7 and 22)
+LANE_OPS = {"hash": 18, "uniform": 4, "acs_state": 8, "traceback_row": 9,
+            "transcendentals": 20 + 7 + 22}
+
+
+def mc_chain_ops_per_symbol(code) -> float:
+    """Operations per lane and trellis symbol of kernel 3's function on
+    AWGN with soft metrics (LANE_OPS): the info bit's hash and mask on the
+    rows below L; the encoder register and its expected symbol (5); two
+    uniforms; Box-Muller (the transcendentals, 2 pi u and -2 log u, then r
+    c and r s, scaled by sigma and added to the point: 10 more); a distance
+    a point (2 subtractions, 2 squares, an add, a scale); the ACS of every
+    state; one traceback row."""
+    o = LANE_OPS
+    ops = code.block_length / code.num_block_symbols * (o["hash"] + 1) + 5
+    ops += 2 * (o["hash"] + o["uniform"]) + o["transcendentals"] + 10
+    ops += 6 * code.points_per_symbol
+    return ops + o["acs_state"] * code.num_states + o["traceback_row"]
 
 
 SEQ_RATES = [("stack", "k9-r12", 4.0), ("stack", "k9-r12", 8.0),
@@ -1250,12 +1444,15 @@ def longframe_instr_per_symbol(code, channel: str) -> int:
     return 8 * code.num_states + stage + 30
 
 
-def measure_longframe(torch, dev, card, clock, stats):
+def measure_longframe(torch, dev, card, clock, stats, sass):
     """Kernel 6 at BASELINE configs 0 and 2 (warm calls, fresh seeds, walls
     of about 2 s), kernels 4-5 at both real-data decode shapes, each beside
     its bound and its plain version, whose outputs on the same inputs the
     kernels must match: kernel 6 exactly on BSC (at most 1% of lanes
-    different on AWGN), kernels 4-5 bit for bit."""
+    different on AWGN), kernels 4-5 bit for bit.  Kernel 4 also at B = 1,
+    where one warp's chain is all that runs (B = 128 puts one such warp on
+    each SM), with ``sass["stream_acs_instr"]``, its SASS instructions a
+    step."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops import fused_longframe as fl
     from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
@@ -1340,7 +1537,8 @@ def measure_longframe(torch, dev, card, clock, stats):
                                 "bytes"), (8 * S * T * B / slots * 1e3, "operations")),
              "stream_traceback": ((T * nw + 2 + T) * 4 * B / HBM_BYTES_PER_S * 1e3, "bytes")}
         print(f"stream kernels [{card}]: nasa-k7 B={B} T={T} ({T} dependent steps): "
-              f"stream_acs {k['stream_acs']:.4f} ms (plain {p['stream_acs']:.1f} ms, bound "
+              f"stream_acs {k['stream_acs']:.4f} ms (before: "
+              f"{BEFORE_MS['stream_acs'][B]:.4f} ms; plain {p['stream_acs']:.1f} ms, bound "
               f"{b['stream_acs'][0]:.4f} ms {b['stream_acs'][1]}), stream_traceback "
               f"{k['stream_traceback']:.4f} ms (plain {p['stream_traceback']:.1f} ms, bound "
               f"{b['stream_traceback'][0]:.4f} ms bytes); decode "
@@ -1361,6 +1559,18 @@ def measure_longframe(torch, dev, card, clock, stats):
         if n == 0:
             for name in ("stream_acs", "stream_traceback"):
                 times[name], plain[name], bound[name] = k[name], p[name], b[name]
+            # one frame: a warp's dependent chain alone
+            d1, i1 = d[:, :, :1].contiguous(), init[:, :1].contiguous()
+            one = lc.stream_acs_cuda(code, d1, i1, False)
+            ms1 = cuda_ms(lambda: lc.stream_acs_cuda(code, d1, i1, False), 5)
+            require(torch.equal(one[0], fm[:, :1]) and torch.equal(one[1], dec[:, :, :1]),
+                    "stream ACS at B = 1 differs from the same frame at B = 128")
+            cycles = ms1 * 1e-3 * clock / T
+            print(f"stream_acs [{card}]: nasa-k7 B=1 T={T}: {ms1:.4f} ms (B={B}: "
+                  f"{k['stream_acs'] / ms1:.3f} x this), {cycles:.1f} cycles a step at the "
+                  f"maximum clock for {sass['stream_acs_instr']:.1f} SASS instructions "
+                  f"({cycles / sass['stream_acs_instr']:.2f} cycles an instruction); equal "
+                  f"to the frame at B={B}")
         del d, dec, dec_r
     return times, plain, bound
 
@@ -1435,6 +1645,77 @@ def measure_traceback_crossover(torch, dev, card):
         del dec
 
 
+#: (code, B, T, hard) of kernel 1 (code 0) and kernel 4 in ``--kernel-times``:
+#: kernel 1's shape, both decode shapes soft and hard, and B = 128 frames
+#: at every S from 4 to 256
+KERNEL4_TIMES = ((0, 262144, 42, False), ("nasa-k7", 128, 65536, False),
+                 ("nasa-k7", 1024, 16384, False), ("nasa-k7", 128, 65536, True),
+                 ("nasa-k7", 1024, 16384, True), ("k3-75", 128, 16384, False),
+                 ("k4-r12", 128, 16384, False), ("k5-r12", 128, 16384, False),
+                 ("k6-r12", 128, 16384, False), ("k8-r12", 128, 16384, False),
+                 ("k9-r12", 128, 16384, False))
+
+
+def kernel_times(torch, dev, card) -> None:
+    """Kernels 1, 3, 4 and 6 of the package first on sys.path at phase 5's
+    shapes, device milliseconds (CUDA events, mean of warm launches) on the
+    same inputs from any tree: kernel 3 at the headline shape per MC step,
+    kernel 1 and kernel 4 at KERNEL4_TIMES' shapes, kernel 6 at configs 0
+    and 2."""
+    import convolutional_codes_tpu_torch as pkg
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fused_chain import mc_chain_viterbi
+    from convolutional_codes_tpu_torch.ops.viterbi import BIG_METRIC
+
+    from convolutional_codes_tpu_torch.utils import build
+
+    build.build_all()
+    print(f"kernel times of {os.path.dirname(os.path.abspath(pkg.__file__))} [{card}]")
+    code = get_code(0)
+    sigma, B, nsteps = float(awgn_sigma(8.0)), 1 << 20, 16
+    mc_chain_viterbi(code, B, nsteps, 1, sigma, device=dev)
+    ms = cuda_ms(lambda: mc_chain_viterbi(code, B, nsteps, 100, sigma, device=dev), 4) / nsteps
+    print(f"  kernel 3: code 0 AWGN 8 dB, {B} lanes x {nsteps} steps: {ms:.4f} ms per step "
+          f"({B * code.block_length / ms * 1e3:.6e} info bits/s of device time)")
+    for ck, B, T, hard in KERNEL4_TIMES:
+        code = k8_code() if ck == "k8-r12" else get_code(ck)
+        g = torch.Generator(device=dev).manual_seed(3)
+        shape = (T, code.points_per_symbol, B)
+        d = (torch.randint(0, code.symlen_out + 1, shape, generator=g, device=dev).float()
+             if hard else torch.rand(shape, generator=g, device=dev) * 8.0)
+        init = torch.full((code.num_states, B), BIG_METRIC, device=dev)
+        init[0] = 0.0
+        run = ((lambda: vc.acs_forward_cuda(code, d, init, hard)) if ck == 0
+               else (lambda: lc.stream_acs_cuda(code, d, init, hard)))
+        run()
+        ms = cuda_ms(run, 200 if ck == 0 else 10)
+        # held against the plain version, kernel 4 on the first 2,049 steps
+        if ck == 0:
+            got, want = run(), vc.acs_forward_ref(code, d, init, hard)
+        else:
+            d2 = d[:2049].contiguous()
+            got = lc.stream_acs_cuda(code, d2, init, hard)
+            want = lc.stream_acs_ref(code, d2, init, hard)
+        require(all(torch.equal(a, w) for a, w in zip(got, want)),
+                f"kernel {1 if ck == 0 else 4} differs from the plain version: {code.name}")
+        print(f"  kernel {1 if ck == 0 else 4}: {code.name} (S={code.num_states}) "
+              f"{'hard' if hard else 'soft'} B={B} T={T}: {ms:.4f} ms, equal to the plain "
+              "version")
+        del d, init
+    for ck, channel, point, lanes, windows in LONGFRAME_CONFIGS:
+        code = get_code(ck)
+        param = float(awgn_sigma(point)) if channel == "awgn" else point
+        run = lambda: fl.mc_longframe_viterbi(code, lanes, windows, 100, param,
+                                              channel=channel, device=dev)
+        run()
+        print(f"  kernel 6: {code.name} {channel}, {lanes} lanes x {windows} windows: "
+              f"{cuda_ms(run, 3):.3f} ms per launch")
+
+
 def main() -> int:
     import torch
 
@@ -1446,6 +1727,10 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         from convolutional_codes_tpu_torch.ops import fused_longframe as fl
         measure_longframe_wide(torch, torch.device("cuda", 0), card_line(), fl, False)
+        return 0
+    if sys.argv[1:2] == ["--kernel-times"]:   # kernels 1, 3, 4 and 6 of another tree
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        kernel_times(torch, torch.device("cuda", 0), card_line())
         return 0
     sys.path.insert(0, ROOT)
     t_start = time.time()
@@ -1478,6 +1763,7 @@ def main() -> int:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
         print_ptxas(build.build_log.get("fano_mc", ""))
         print_ptxas_longframe(build.build_log)
+        sass = read_sass(build)
 
     wrappers = {"acs_forward": vc.acs_forward_cuda, "traceback": vc.traceback_cuda,
                 "mc_chain": fc.mc_chain_viterbi, "mc_stack": stack_mc.mc_stack,
@@ -1535,9 +1821,9 @@ def main() -> int:
     with phase("5 throughput"):
         card, clock = card_line(), sm_clock_hz()
         print(f"max SM clock {clock / 1e6:.0f} MHz")
-        times, plain, bound = measure(torch, dev, card, clock)
+        times, plain, bound = measure(torch, dev, card, clock, sass)
         for measured in (measure_sequential(torch, dev, card, clock),
-                         measure_longframe(torch, dev, card, clock, stats),
+                         measure_longframe(torch, dev, card, clock, stats, sass),
                          measure_supplied(torch, dev, card, clock, stats)):
             for d in zip((times, plain, bound), measured):
                 d[0].update(d[1])

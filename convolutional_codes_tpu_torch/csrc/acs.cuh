@@ -1,13 +1,12 @@
 // Shared device code of the Viterbi kernels: the radix-2 add-compare-select
 // step on a per-thread metric array, and the (S, M) template dispatch.
 //
-// One thread owns one frame.  Its S path metrics live in a per-thread array
-// (registers up to S = 64; S = 128/256 spill to local memory).  The trellis
-// butterfly is read by index: new state ns has predecessors 2j and 2j+1
-// (j = ns mod S/2), and the expected symbols of those two transitions come
-// from the esym tables, which sit in the kernel's parameter block (constant
-// bank) and are read at compile-time offsets because the state loop is
-// fully unrolled.
+// One thread owns one lane (kernels 3 and 6).  Its S path metrics live in a
+// per-thread array (registers up to S = 64).  The trellis butterfly is read
+// by index: new state ns has predecessors 2j and 2j+1 (j = ns mod S/2), and
+// the expected symbols of those two transitions come from the esym tables,
+// which sit in the kernel's parameter block (constant bank) and are read at
+// compile-time offsets because the state loop is fully unrolled.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,25 +30,18 @@ static inline void fill_trellis(TrellisTables* tt, const int* esym_prev, int S) 
   }
 }
 
-// bm[es] without a dynamic register index (which would move bm to local
-// memory): M-1 compare/selects.
-template <int M>
-__device__ __forceinline__ float pick(const float (&bm)[M], int es) {
-  float r = bm[0];
-#pragma unroll
-  for (int e = 1; e < M; ++e) r = (es == e) ? bm[e] : r;
-  return r;
-}
-
 // One trellis step src -> dst.  Strict-less compare: ties keep branch 0
 // (the even predecessor).  Hard mode saturates both candidates at 0xFF00
-// before the compare, as the reference does.  words[w] receives bit (s % 32)
-// = decision of new state s = 32 w + (s % 32).
-template <int S, int M>
-__device__ __forceinline__ void acs_step(const float (&src)[S], float (&dst)[S],
-                                         const float (&bm)[M], bool hard,
-                                         const TrellisTables& tt,
-                                         unsigned (&words)[(S + 31) / 32]) {
+// before the compare, as the reference does.  The branch metric of each
+// transition is read from the thread's column of shared memory, bmcol[e
+// STRIDE]: one load at a computed address (a pick from registers took M-1
+// compares and selects).  words[w] receives bit (s % 32) = decision of new
+// state s = 32 w + (s % 32).
+template <int S, int STRIDE>
+__device__ __forceinline__ void acs_step_smem(const float (&src)[S], float (&dst)[S],
+                                              const float* bmcol, bool hard,
+                                              const TrellisTables& tt,
+                                              unsigned (&words)[(S + 31) / 32]) {
   constexpr int NW = (S + 31) / 32;
   constexpr int PER = S < 32 ? S : 32;
 #pragma unroll
@@ -59,8 +51,8 @@ __device__ __forceinline__ void acs_step(const float (&src)[S], float (&dst)[S],
     for (int i = 0; i < PER; ++i) {
       const int ns = w * 32 + i;
       const int j = ns & (S / 2 - 1);
-      float c0 = src[2 * j] + pick<M>(bm, tt.esym0[ns]);
-      float c1 = src[2 * j + 1] + pick<M>(bm, tt.esym1[ns]);
+      float c0 = src[2 * j] + bmcol[tt.esym0[ns] * STRIDE];
+      float c1 = src[2 * j + 1] + bmcol[tt.esym1[ns] * STRIDE];
       if (hard) {
         c0 = fminf(c0, CC_HARD_SAT);
         c1 = fminf(c1, CC_HARD_SAT);
@@ -86,6 +78,27 @@ __device__ __forceinline__ unsigned argmin_state(const float (&m)[S]) {
     }
   }
   return cur;
+}
+
+// The expected symbol of every K-bit register (polynomial 0 at the MSB,
+// with the compat quirk: models/trellis.py effective_parity_u64), symlen
+// bits each, packed into 64 bits where 2^K symlen <= 64; 0 elsewhere.
+static inline unsigned long long pack_esym_table(int K, int symlen, const unsigned* polys,
+                                                 unsigned qmask, int* packed) {
+  unsigned long long tab = 0;
+  *packed = (1 << K) * symlen <= 64;
+  if (!*packed) return 0;
+  for (unsigned reg = 0; reg < (1u << K); ++reg) {
+    unsigned esym = 0;
+    for (int n = 0; n < symlen; ++n) {
+      const unsigned x = reg & polys[n];
+      unsigned bit = (unsigned)__builtin_parity(x);
+      if (qmask) bit &= 1u - (unsigned)__builtin_parity(x & qmask);
+      esym = (esym << 1) | bit;
+    }
+    tab |= (unsigned long long)esym << (reg * symlen);
+  }
+  return tab;
 }
 
 // Calls FN<S, M>(args...) for a runtime (S, M) with S in {2..256} (powers

@@ -14,23 +14,34 @@
 // salts 0/1/2).  A lane g belongs to logical tile g / Bt at in-tile index
 // j = g % Bt; the flat hash index of plane element (k, t, j) is
 // k*T*Bt + t*Bt + j, so the stream depends on Bt (the reference's
-// block_lanes) and not on the CUDA block size.  The info bits are
-// regenerated from the hash in the traceback instead of being stored.
+// block_lanes) and not on the CUDA block size.
 //
-// What bounds it on the H100: per trellis step a lane does two hashes (plus
-// log/sqrt/sin/cos for AWGN, or symlen hashes for BSC), the demapper, and
-// about 8 S ACS operations, all serially dependent along t; no device
-// memory traffic except the decisions, which live in per-thread local
-// memory (T * ceil(S/32) words: 42 for code 0, 864 for K=9) and so go
-// through L1/L2.  So it is bound by instruction issue, not by device
-// memory: the design keeps everything of a lane in registers or local
-// memory and launches one thread per lane, B in all.
+// What bounds it on the H100: instruction issue.  Per trellis symbol a
+// lane does two hashes (plus log/sqrt/sincos for AWGN, or symlen hashes
+// for BSC), the encoder, the demapper, the ACS and its share of the
+// traceback, all serially dependent along t, with no device memory
+// traffic but the counters; chip_smoke.py counts the instructions of the
+// code-0 instance's loops in its SASS.  So the design removes
+// instructions, each change exact by construction: the channel is a
+// template parameter (no branch per symbol); each transition reads its
+// branch metric from the lane's column of shared memory (acs.cuh's
+// acs_step_smem, shared with kernel 6) where a pick from registers took
+// M-1 compares and selects; the expected symbol comes from a 64-bit table
+// of every register where 2^K symlen <= 64 (code 0: 16 bits); a BSC flip
+// compares the draw's integer with a threshold computed on the host; one
+// sincosf replaces sinf and cosf (the same bits: chip_smoke checks 2^24 of
+// the chain's angles); the decisions of S < 32 states pack 32/S rows a word
+// in the per-thread local array (code 0: 6 words an MC step where there
+// were 42), and the traceback walks them a word at a time, its rows
+// unrolled; the info bits the forward pass draws are stored 32 a word, and
+// the traceback counts errors a 32-row word at a time by popcount instead
+// of drawing each bit again.
 //
 // Exactness: built with -fmad=false, so rxi = txi + param*noise and
 // ((di*di)+(dq*dq))*inv_nd round every product as the reference's float
 // expressions do; compares are strict-less.  BSC runs carry no
 // transcendental and match the reference bit for bit; AWGN goes through
-// logf/sqrtf/sinf/cosf, whose last-ulp results differ from XLA's.
+// logf/sqrtf/sincosf, whose last-ulp results differ from XLA's.
 #include "acs.cuh"
 
 namespace {
@@ -46,10 +57,26 @@ struct ChainParams {
   unsigned qmask;
   float inv_nd;
   float param;   // sigma (awgn) or crossover probability (bsc)
+  // BSC: coded bit k flips where hash_uniform(..) < param, which is
+  // (hash_bits(..) >> 1) < flip_below (the uniform is monotone in the bits)
+  unsigned flip_below;
+  // the expected symbol of every K-bit register where 2^K symlen <= 64
+  unsigned long long esym_tab;
   unsigned seed;
-  int K, L, T, symlen, nsteps, Bt, B;
-  int bsc;       // 1: BSC + Hamming metrics with 0xFF00 saturation
-  int snap;      // 1: snap-then-distance (hard) demapper on AWGN
+  int K, L, T, nsteps, Bt, B;
+};
+
+// The channel and demapper of an instance: BSC with Hamming metrics and
+// 0xFF00 saturation, AWGN soft, AWGN snap-then-distance (hard demapper).
+enum Mode { kBsc = 0, kSoft = 1, kSnap = 2 };
+
+// Decision layout for S states: S < 32 packs P = 32/S rows per word (row t
+// in bits (t mod P) S .. of word t / P), else NW words a row.
+template <int S>
+struct Pack {
+  static constexpr int NW = (S + 31) / 32;
+  static constexpr int P = S < 32 ? 32 / S : 1;
+  static constexpr int WORDS = (kMaxSymbols + P - 1) / P * NW;
 };
 
 __device__ __forceinline__ unsigned lowbias32(unsigned x) {
@@ -76,16 +103,33 @@ constexpr unsigned kSalt0 = 0u;
 constexpr unsigned kSalt1 = 0x85EBCA6Bu;
 constexpr unsigned kSalt2 = 0x0BD794D6u;  // 2 * 0x85EBCA6B mod 2^32
 
-__device__ __forceinline__ unsigned parity32(unsigned x) { return __popc(x) & 1u; }
+constexpr float kTwoPi = 6.28318530717958647692f;
+
+template <int M>
+__host__ __device__ constexpr int symlen_of() {
+  return M == 2 ? 1 : (M == 4 ? 2 : 3);
+}
+
+// Whether the expected symbols of all 2^K = 2 S registers fit in 64 bits.
+template <int S, int M>
+__host__ __device__ constexpr bool esym_packed() {
+  return 2 * S * symlen_of<M>() <= 64;
+}
 
 // Encoder parity per polynomial, polynomial 0 at the symbol MSB, with the
-// compat quirk (models/trellis.py effective_parity_u64).
+// compat quirk (models/trellis.py effective_parity_u64): from the packed
+// table where the code is small enough, else by popcount.
+template <int S, int M>
 __device__ __forceinline__ unsigned esym_of(unsigned reg, const ChainParams& p) {
+  constexpr int SL = symlen_of<M>();
+  if constexpr (esym_packed<S, M>())
+    return (unsigned)(p.esym_tab >> (reg * SL)) & (unsigned)(M - 1);
   unsigned esym = 0;
-  for (int n = 0; n < p.symlen; ++n) {
+#pragma unroll
+  for (int n = 0; n < SL; ++n) {
     const unsigned x = reg & p.polys[n];
-    unsigned bit = parity32(x);
-    if (p.qmask) bit &= 1u - parity32(x & p.qmask);
+    unsigned bit = __popc(x) & 1u;
+    if (p.qmask) bit &= 1u - (__popc(x & p.qmask) & 1u);
     esym = (esym << 1) | bit;
   }
   return esym;
@@ -102,74 +146,128 @@ __device__ __forceinline__ void dist_vec(float rxi, float rxq, const ChainParams
   }
 }
 
-// Branch metrics of trellis step t for one lane; advances the encoder.
-template <int M>
-__device__ __forceinline__ void branch_metrics(const ChainParams& p, int t, unsigned j,
-                                               unsigned sbase, unsigned& reg,
-                                               float (&bm)[M]) {
+// Branch metrics of trellis step t for one lane into its column of shared
+// memory, bmcol[e kThreads]; advances the encoder and returns the info bit.
+template <int S, int M, int MODE>
+__device__ __forceinline__ unsigned branch_metrics(const ChainParams& p, int t, unsigned j,
+                                                   unsigned sbase, unsigned& reg,
+                                                   float* bmcol) {
   const unsigned plane = (unsigned)p.T * (unsigned)p.Bt;
   const unsigned idx = (unsigned)t * (unsigned)p.Bt + j;
   const unsigned bit = t < p.L ? (hash_bits(idx, sbase, kSalt0) & 1u) : 0u;
   reg = (reg >> 1) | (bit << (p.K - 1));
-  const unsigned esym = esym_of(reg, p);
-  if (p.bsc) {
+  const unsigned esym = esym_of<S, M>(reg, p);
+  float bm[M];
+  if constexpr (MODE == kBsc) {
     unsigned fmask = 0;
-    for (int k = 0; k < p.symlen; ++k) {
-      const float u = hash_uniform((unsigned)k * plane + idx, sbase, kSalt1);
-      fmask |= (unsigned)(u < p.param) << k;
-    }
+#pragma unroll
+    for (int k = 0; k < symlen_of<M>(); ++k)
+      fmask |= (unsigned)((hash_bits((unsigned)k * plane + idx, sbase, kSalt1) >> 1) <
+                          p.flip_below) << k;
     const unsigned rx = esym ^ fmask;
 #pragma unroll
     for (int e = 0; e < M; ++e) bm[e] = (float)__popc(rx ^ (unsigned)e);
-    return;
-  }
-  const float u0 = hash_uniform(idx, sbase, kSalt2);
-  const float u1 = hash_uniform(plane + idx, sbase, kSalt2);
-  const float r = sqrtf(-2.0f * logf(u0));
-  const float theta = 6.28318530717958647692f * u1;
-  const float rxi = p.px[esym] + p.param * (r * cosf(theta));
-  const float rxq = p.py[esym] + p.param * (r * sinf(theta));
-  dist_vec<M>(rxi, rxq, p, bm);
-  if (p.snap) {
-    float best = bm[0], sxi = p.px[0], sxq = p.py[0];
+  } else {
+    const float u0 = hash_uniform(idx, sbase, kSalt2);
+    const float u1 = hash_uniform(plane + idx, sbase, kSalt2);
+    const float r = sqrtf(-2.0f * logf(u0));
+    float s, c;
+    sincosf(kTwoPi * u1, &s, &c);   // the bits of sinf and cosf (chip_smoke checks)
+    const float rxi = p.px[esym] + p.param * (r * c);
+    const float rxq = p.py[esym] + p.param * (r * s);
+    dist_vec<M>(rxi, rxq, p, bm);
+    if constexpr (MODE == kSnap) {
+      float best = bm[0], sxi = p.px[0], sxq = p.py[0];
 #pragma unroll
-    for (int e = 1; e < M; ++e) {
-      if (bm[e] < best) {
-        best = bm[e];
-        sxi = p.px[e];
-        sxq = p.py[e];
+      for (int e = 1; e < M; ++e) {
+        if (bm[e] < best) {
+          best = bm[e];
+          sxi = p.px[e];
+          sxq = p.py[e];
+        }
       }
+      dist_vec<M>(sxi, sxq, p, bm);
     }
-    dist_vec<M>(sxi, sxq, p, bm);
   }
+#pragma unroll
+  for (int e = 0; e < M; ++e) bmcol[e * kThreads] = bm[e];
+  return bit;
 }
 
-template <int S, int M>
+// Trellis step t of one lane, src -> dst: the branch metrics, one ACS step,
+// the decisions into dec (S < 32: packed into acc, the word stored with its
+// last row) and the info bit into info (a word stored with its last row).
+template <int S, int M, int MODE>
 __device__ __forceinline__ void chain_time_step(const ChainParams& p, int t, unsigned j,
                                                 unsigned sbase, unsigned& reg,
                                                 const float (&src)[S], float (&dst)[S],
-                                                unsigned* dec) {
-  constexpr int NW = (S + 31) / 32;
-  float bm[M];
-  unsigned words[NW];
-  branch_metrics<M>(p, t, j, sbase, reg, bm);
-  acs_step<S, M>(src, dst, bm, p.bsc != 0, p.tt, words);
+                                                float* bmcol, unsigned* dec, unsigned& acc,
+                                                unsigned* info, unsigned& iacc) {
+  using Pk = Pack<S>;
+  const unsigned bit = branch_metrics<S, M, MODE>(p, t, j, sbase, reg, bmcol);
+  unsigned words[Pk::NW];
+  acs_step_smem<S, kThreads>(src, dst, bmcol, MODE == kBsc, p.tt, words);
+  if constexpr (Pk::P > 1) {
+    const int i = t & (Pk::P - 1);
+    acc |= words[0] << (i * S);
+    if (i == Pk::P - 1 || t == p.T - 1) {
+      dec[t / Pk::P] = acc;
+      acc = 0;
+    }
+  } else {
 #pragma unroll
-  for (int w = 0; w < NW; ++w) dec[t * NW + w] = words[w];
+    for (int w = 0; w < Pk::NW; ++w) dec[t * Pk::NW + w] = words[w];
+  }
+  iacc |= bit << (t & 31);
+  if ((t & 31) == 31 || t == p.T - 1) {
+    info[t >> 5] = iacc;
+    iacc = 0;
+  }
 }
 
-template <int S, int M>
+__host__ __device__ constexpr int log2i(int x) { return x <= 1 ? 0 : 1 + log2i(x / 2); }
+
+// The P = 32/S rows of a traceback (S < 32) in one packed word, top row
+// first: the decoded bit of each row (the state's top bit) shifted into
+// dacc (a 32-row word walked from its top row down ends with row t in bit
+// t mod 32), cur back to the state before the item's first row.
+template <int S>
+__device__ __forceinline__ void walk_item(unsigned word, unsigned& cur, unsigned& dacc) {
+#pragma unroll
+  for (int i = Pack<S>::P - 1; i >= 0; --i) {
+    const unsigned survivor = (word >> (i * S + (int)cur)) & 1u;
+    dacc = (dacc << 1) | (cur >> (log2i(S) - 1));
+    cur = ((cur & (unsigned)(S / 2 - 1)) << 1) | survivor;
+  }
+}
+
+// Once the rows of a 32-row word down to row t are walked (t mod 32 = 0):
+// the errors of its rows below L, decoded bits against stored info bits.
+__device__ __forceinline__ void count_errors(int t, int L, const unsigned* info,
+                                             unsigned& dacc, int& err) {
+  if ((t & 31) == 0) {
+    const int rows = L - t;   // rows t .. t+31 below L
+    const unsigned mask = rows >= 32 ? ~0u : (rows > 0 ? (1u << rows) - 1u : 0u);
+    err += __popc((dacc ^ info[t >> 5]) & mask);
+    dacc = 0;
+  }
+}
+
+template <int S, int M, int MODE>
 __global__ void __launch_bounds__(kThreads)
 mc_chain_kernel(int* __restrict__ out, const __grid_constant__ ChainParams p) {
-  constexpr int NW = (S + 31) / 32;
+  using Pk = Pack<S>;
+  __shared__ float bm_s[M * kThreads];   // [e][thread]: the row's branch metrics
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= p.B) return;
+  float* bmcol = bm_s + threadIdx.x;
   const unsigned tile = (unsigned)g / (unsigned)p.Bt;
   const unsigned j = (unsigned)g % (unsigned)p.Bt;
   const unsigned hbase = lowbias32((p.seed * 0x9E3779B9u) ^ ((tile + 1u) * 0xC2B2AE35u));
-  const float init = p.bsc ? CC_HARD_SAT : 1e30f;
+  const float init = MODE == kBsc ? CC_HARD_SAT : 1e30f;
   const unsigned half_mask = (unsigned)(S >> 1) - 1u;
-  unsigned dec[kMaxSymbols * NW];
+  unsigned dec[Pk::WORDS];
+  unsigned info[kMaxSymbols / 32];
   int errs = 0, ferrs = 0;
 
   for (int step = 0; step < p.nsteps; ++step) {
@@ -178,54 +276,105 @@ mc_chain_kernel(int* __restrict__ out, const __grid_constant__ ChainParams p) {
     ma[0] = 0.0f;
 #pragma unroll
     for (int s = 1; s < S; ++s) ma[s] = init;
-    unsigned reg = 0;
+    unsigned reg = 0, acc = 0, iacc = 0;
     int t = 0;
+#pragma unroll 1
     for (; t + 1 < p.T; t += 2) {
-      chain_time_step<S, M>(p, t, j, sbase, reg, ma, mb, dec);
-      chain_time_step<S, M>(p, t + 1, j, sbase, reg, mb, ma, dec);
+      chain_time_step<S, M, MODE>(p, t, j, sbase, reg, ma, mb, bmcol, dec, acc, info, iacc);
+      chain_time_step<S, M, MODE>(p, t + 1, j, sbase, reg, mb, ma, bmcol, dec, acc, info,
+                                  iacc);
     }
     unsigned cur;
     if (t < p.T) {
-      chain_time_step<S, M>(p, t, j, sbase, reg, ma, mb, dec);
+      chain_time_step<S, M, MODE>(p, t, j, sbase, reg, ma, mb, bmcol, dec, acc, info, iacc);
       cur = argmin_state<S>(mb);
     } else {
       cur = argmin_state<S>(ma);
     }
-    int err = 0, fe = 0;
-    for (t = p.T - 1; t >= 0; --t) {
-      const unsigned word = dec[t * NW + (cur >> 5)];
-      const unsigned survivor = (word >> (cur & 31u)) & 1u;
-      if (t < p.L) {
-        const unsigned sent =
-            hash_bits((unsigned)t * (unsigned)p.Bt + j, sbase, kSalt0) & 1u;
-        const int mism = (cur >> (p.K - 2)) != sent;
-        err += mism;
-        fe |= mism;
+    // the traceback: the decoded bits of each 32-row word (shifted in from
+    // its top row down) against the stored info bits of its rows t < L, by
+    // popcount
+    int err = 0;
+    unsigned dacc = 0;
+    if constexpr (Pk::P > 1) {
+      // the top item's rows (T may end inside it) one at a time, then a
+      // packed word at a time with its rows unrolled
+      int item = (p.T - 1) / Pk::P;
+      const unsigned top = dec[item];
+#pragma unroll 1
+      for (t = p.T - 1; t >= item * Pk::P; --t) {
+        const unsigned survivor = (top >> ((t - item * Pk::P) * S + (int)cur)) & 1u;
+        dacc = (dacc << 1) | (cur >> (log2i(S) - 1));
+        cur = ((cur & half_mask) << 1) | survivor;
       }
-      cur = ((cur & half_mask) << 1) | survivor;
+      count_errors(item * Pk::P, p.L, info, dacc, err);
+#pragma unroll 1
+      for (--item; item >= 0; --item) {
+        walk_item<S>(dec[item], cur, dacc);
+        count_errors(item * Pk::P, p.L, info, dacc, err);
+      }
+    } else {
+#pragma unroll 1
+      for (t = p.T - 1; t >= 0; --t) {
+        const unsigned word = dec[t * Pk::NW + (int)(cur >> 5)];
+        dacc = (dacc << 1) | (cur >> (log2i(S) - 1));
+        count_errors(t, p.L, info, dacc, err);
+        cur = ((cur & half_mask) << 1) | ((word >> (cur & 31u)) & 1u);
+      }
     }
     errs += err;
-    ferrs += fe;
+    ferrs += err > 0;
   }
   out[g] = errs;
   out[(size_t)p.B + g] = ferrs;
+}
+
+// sincosf against the pair sinf, cosf at theta = 2 pi u for the uniforms u
+// of flat indices 0 .. n-1 (salt 2, hash base sbase), as the chain draws
+// them: counts[0] += the arguments whose sines differ in any bit,
+// counts[1] += those whose cosines do.
+__global__ void __launch_bounds__(256)
+sincos_check_kernel(unsigned long long* __restrict__ counts, unsigned n, unsigned sbase) {
+  unsigned ds = 0, dc = 0;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const float theta = kTwoPi * hash_uniform(i, sbase, kSalt2);
+    const float s0 = sinf(theta), c0 = cosf(theta);
+    float s1, c1;
+    sincosf(theta, &s1, &c1);
+    ds += __float_as_uint(s0) != __float_as_uint(s1);
+    dc += __float_as_uint(c0) != __float_as_uint(c1);
+  }
+  atomicAdd(&counts[0], (unsigned long long)ds);
+  atomicAdd(&counts[1], (unsigned long long)dc);
+}
+
+template <int S, int M>
+void launch_chain(int mode, dim3 grid, int* out, const ChainParams& p, cudaStream_t stream) {
+  if (mode == kBsc)
+    mc_chain_kernel<S, M, kBsc><<<grid, kThreads, 0, stream>>>(out, p);
+  else if (mode == kSoft)
+    mc_chain_kernel<S, M, kSoft><<<grid, kThreads, 0, stream>>>(out, p);
+  else
+    mc_chain_kernel<S, M, kSnap><<<grid, kThreads, 0, stream>>>(out, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out [2, B] int32 (bit errors, frame errors per lane).  Host arrays:
-// esym_prev [S, 2] int32, points [M, 2] float32, polys [symlen] uint32.
-// Returns cudaGetLastError().
+// out [2, B] int32 (bit errors, frame errors per lane).  flip_below: a BSC
+// coded bit flips where its draw's 31-bit integer is below it
+// (ops/fused_chain.flip_threshold).  Host arrays: esym_prev [S, 2]
+// int32, points [M, 2] float32, polys [symlen] uint32.  Returns
+// cudaGetLastError().
 int cc_mc_chain(int* out, int B, int Bt, int nsteps, unsigned seed, float param,
-                int bsc, int snap, int K, int L, int T, int symlen,
+                unsigned flip_below, int bsc, int snap, int K, int L, int T, int symlen,
                 const int* esym_prev, const float* points, const unsigned* polys,
                 unsigned qmask, float inv_nd, cudaStream_t stream) {
   const int S = 1 << (K - 1);
   const int M = 1 << symlen;
   if (B <= 0 || Bt <= 0 || B % Bt || nsteps < 0 || T > kMaxSymbols || L > T ||
-      symlen > 3 || S > CC_MAX_STATES)
+      symlen > 3 || S > CC_MAX_STATES || K < 2)
     return cudaErrorInvalidValue;
   ChainParams p;
   fill_trellis(&p.tt, esym_prev, S);
@@ -237,20 +386,29 @@ int cc_mc_chain(int* out, int B, int Bt, int nsteps, unsigned seed, float param,
   p.qmask = qmask;
   p.inv_nd = inv_nd;
   p.param = param;
+  p.flip_below = flip_below;
+  int packed;
+  p.esym_tab = pack_esym_table(K, symlen, polys, qmask, &packed);
   p.seed = seed;
   p.K = K;
   p.L = L;
   p.T = T;
-  p.symlen = symlen;
   p.nsteps = nsteps;
   p.Bt = Bt;
   p.B = B;
-  p.bsc = bsc;
-  p.snap = snap;
+  const int mode = bsc ? kBsc : (snap ? kSnap : kSoft);
   const dim3 grid((B + kThreads - 1) / kThreads);
-#define CC_LAUNCH_CHAIN(S_, M_) mc_chain_kernel<S_, M_><<<grid, kThreads, 0, stream>>>(out, p)
+#define CC_LAUNCH_CHAIN(S_, M_) launch_chain<S_, M_>(mode, grid, out, p, stream)
   CC_DISPATCH(S, M, CC_LAUNCH_CHAIN)
 #undef CC_LAUNCH_CHAIN
+  return (int)cudaGetLastError();
+}
+
+// counts [2] uint64 (zeroed by the caller): sincos_check_kernel over n
+// arguments from hash base sbase.  Returns cudaGetLastError().
+int cc_sincos_check(unsigned long long* counts, unsigned n, unsigned sbase,
+                    cudaStream_t stream) {
+  sincos_check_kernel<<<1024, 256, 0, stream>>>(counts, n, sbase);
   return (int)cudaGetLastError();
 }
 

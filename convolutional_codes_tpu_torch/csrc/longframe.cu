@@ -29,7 +29,14 @@
 // into registers while the current chunk runs from shared memory, and the
 // decision words of a chunk leave through shared memory.  The serial
 // chain of T steps stays; each step is a few dozen instructions of one
-// warp instead of 8 S of one thread.
+// warp instead of 8 S of one thread.  At B = 128 one warp a frame is all an
+// SM runs, and a lone warp issues about one instruction every three to
+// four cycles, so what bounds B = 128 is the step's chain of instructions
+// in one warp (the time of one frame alone), not the card.  Groups of 2^R
+// states a thread, R steps between exchanges through shared memory, issue
+// more instructions per warp and step and were slower at every shape tried
+// (R = 2 and 3, S = 4 .. 256; PERF.md); from S = 8 to 64 the step is
+// pipelined instead (acs_pipelined).
 //
 // stream_traceback.  A traceback is T dependent steps per frame, from
 // given start states or from the first state of least final metric (a
@@ -105,16 +112,38 @@ __device__ __forceinline__ void store_chunk(float* buf,
   }
 }
 
-template <int S, int M>
+// From S = 8 to 64 (a frame's threads in one warp) the step is pipelined:
+// the next step's branch metrics are loaded while this step runs, and the
+// metrics move by two shuffles instead of four (each lane sends first the
+// value its first reader needs).  At S = 4 the two shuffles made kernel 1
+// (code 0, 262,144 frames of 42 steps) 6% slower, 10% with the prefetch;
+// the prefetch alone was 3% slower at S = 128 (PERF.md).
+template <int S>
+__host__ __device__ constexpr bool acs_pipelined() {
+  return S >= 8 && S <= 64;
+}
+
+// Hard mode (0xFF00 saturation) is compiled in from S = 64 (HARD): as a
+// runtime flag there, soft and hard frames ran 4-14% slower (S = 64 to
+// 256).  Below S = 64 it is a runtime flag: compiled in, kernel 1 (S = 4)
+// was 7% slower (PERF.md).
+template <int S>
+__host__ __device__ constexpr bool acs_hard_compiled() {
+  return S >= 64;
+}
+
+template <int S, int M, bool HARD>
 __global__ void __launch_bounds__(AcsLayout<S>::THREADS)
 stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ init,
-                  float* __restrict__ fm, int* __restrict__ dec, int T, int B, int hard,
+                  float* __restrict__ fm, int* __restrict__ dec, int T, int B, int hard_flag,
                   const __grid_constant__ TrellisTables tt) {
   using L = AcsLayout<S>;
   using C = AcsChunk<S, M>;
   constexpr int H = L::H, FPB = L::FPB, NW = L::NW, CH = C::CH;
+  constexpr bool PIPE = acs_pipelined<S>();
+  const bool hard = acs_hard_compiled<S>() ? HARD : hard_flag != 0;
   __shared__ float bm_s[2][C::ELEMS];               // [chunk step][e][frame]
-  __shared__ unsigned dec_s[CH * NW * FPB];         // [chunk step][word][frame]
+  __shared__ __align__(8) unsigned dec_s[CH * NW * FPB];   // [chunk step][word][frame]
   __shared__ float2 m_s[2][H >= 64 ? H : 1];        // metric exchange, S >= 128
 
   const int tid = threadIdx.x;
@@ -129,6 +158,13 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
   float m0 = valid ? init[(size_t)(2 * j) * Bs + b] : 0.0f;       // m[2j]
   float m1 = valid ? init[(size_t)(2 * j + 1) * Bs + b] : 0.0f;   // m[2j+1]
   float na = 0.0f, nb = 0.0f;                                     // new m[j], m[j+H]
+  // PIPE: thread j < H/2 reads m[2j] (the first new state of lane 2j)
+  // and m[2j+1] (of lane 2j+1), thread j >= H/2 the second new states of
+  // lanes 2j-H and 2j-H+1; so an even lane sends first na, then nb, an odd
+  // lane first nb, then na, and two shuffles carry every metric
+  const bool lo = 2 * j < H, odd = j & 1;
+  const int src1 = lo ? 2 * j : (2 * j + 1) & (H - 1);
+  const int src2 = lo ? 2 * j + 1 : (2 * j) & (H - 1);
 
   const int nchunks = (T + CH - 1) / CH;
   float pre[C::PER];
@@ -140,11 +176,24 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
     if (c + 1 < nchunks) load_chunk<S, M>(pre, dists, t0 + CH, T, b0, B);
     const float* bmc = bm_s[c & 1] + f;
     const int steps = min(CH, T - t0);
+    float p0a = bmc[e0a * FPB], p1a = bmc[e1a * FPB], p0b = bmc[e0b * FPB],
+          p1b = bmc[e1b * FPB];
 #pragma unroll 4   // lets the distance loads of later steps issue early
     for (int tl = 0; tl < steps; ++tl) {
-      const float* row = bmc + tl * M * FPB;
-      float c0a = m0 + row[e0a * FPB], c1a = m1 + row[e1a * FPB];
-      float c0b = m0 + row[e0b * FPB], c1b = m1 + row[e1b * FPB];
+      float x0a, x1a, x0b, x1b;
+      if constexpr (PIPE) {
+        x0a = p0a, x1a = p1a, x0b = p0b, x1b = p1b;
+        if (tl + 1 < steps) {
+          const float* next = bmc + (tl + 1) * M * FPB;
+          p0a = next[e0a * FPB], p1a = next[e1a * FPB], p0b = next[e0b * FPB],
+          p1b = next[e1b * FPB];
+        }
+      } else {
+        const float* row = bmc + tl * M * FPB;
+        x0a = row[e0a * FPB], x1a = row[e1a * FPB], x0b = row[e0b * FPB], x1b = row[e1b * FPB];
+      }
+      float c0a = m0 + x0a, c1a = m1 + x1a;
+      float c0b = m0 + x0b, c1b = m1 + x1b;
       if (hard) {
         c0a = fminf(c0a, CC_HARD_SAT);
         c1a = fminf(c1a, CC_HARD_SAT);
@@ -155,7 +204,10 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
       na = da ? c1a : c0a;
       nb = db ? c1b : c0b;
       const unsigned bf = __ballot_sync(kFull, da), bs = __ballot_sync(kFull, db);
-      if constexpr (H < 32) {
+      if constexpr (S == 64) {
+        // one frame a warp: every lane stores its words 0 and 1 (no branch)
+        *reinterpret_cast<uint2*>(dec_s + tl * 2) = make_uint2(bf, bs);
+      } else if constexpr (H < 32) {
         // the warp holds FPB frames; frame f's states j are lanes f*H + j
         if (j == 0) {
           constexpr unsigned mask = (1u << H) - 1u;
@@ -167,7 +219,12 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
         dec_s[(tl * NW + k) * FPB] = bf;
         dec_s[(tl * NW + H / 32 + k) * FPB] = bs;
       }
-      if constexpr (H <= 32) {
+      if constexpr (PIPE) {
+        const float r1 = __shfl_sync(kFull, odd ? nb : na, src1, H);
+        const float r2 = __shfl_sync(kFull, odd ? na : nb, src2, H);
+        m0 = lo ? r1 : r2;
+        m1 = lo ? r2 : r1;
+      } else if constexpr (H <= 32) {
         // m[2j] and m[2j+1] live in lanes 2j mod H, 2j+1 mod H, as their
         // first (index < H) or second new state
         const int s0 = (2 * j) & (H - 1), s1 = (2 * j + 1) & (H - 1);
@@ -383,6 +440,19 @@ tb_fold_kernel(const unsigned char* __restrict__ map, const int* __restrict__ st
   }
 }
 
+template <int S, int M>
+void launch_stream_acs(const float* dists, const float* init, float* fm, int* dec, int T, int B,
+                       int hard, const TrellisTables& tt, cudaStream_t stream) {
+  using L = AcsLayout<S>;
+  const int blocks = (B + L::FPB - 1) / L::FPB;
+  if (acs_hard_compiled<S>() && hard)
+    stream_acs_kernel<S, M, acs_hard_compiled<S>()>
+        <<<blocks, L::THREADS, 0, stream>>>(dists, init, fm, dec, T, B, hard, tt);
+  else
+    stream_acs_kernel<S, M, false><<<blocks, L::THREADS, 0, stream>>>(dists, init, fm, dec, T, B,
+                                                                     hard, tt);
+}
+
 }  // namespace
 
 extern "C" {
@@ -394,10 +464,8 @@ int cc_stream_acs(const float* dists, const float* init, float* fm, int* dec, in
   if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES) return cudaErrorInvalidValue;
   TrellisTables tt;
   fill_trellis(&tt, esym_prev, S);
-#define CC_LAUNCH_STREAM_ACS(S_, M_)                                                   \
-  stream_acs_kernel<S_, M_>                                                            \
-      <<<(B + AcsLayout<S_>::FPB - 1) / AcsLayout<S_>::FPB, AcsLayout<S_>::THREADS, 0, \
-         stream>>>(dists, init, fm, dec, T, B, hard, tt)
+#define CC_LAUNCH_STREAM_ACS(S_, M_) \
+  launch_stream_acs<S_, M_>(dists, init, fm, dec, T, B, hard, tt, stream)
   CC_DISPATCH(S, M, CC_LAUNCH_STREAM_ACS)
 #undef CC_LAUNCH_STREAM_ACS
   return (int)cudaGetLastError();

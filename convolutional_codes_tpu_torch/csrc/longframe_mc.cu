@@ -190,39 +190,6 @@ __device__ __forceinline__ void store_info_bit(const LongframeParams& p, int t, 
   }
 }
 
-// One trellis step src -> dst as acs.cuh's acs_step (the same float32
-// expressions, strict-less, hard saturation), the branch metric of each
-// transition read from the thread's column of shared memory, bmcol[e
-// kThreads]: one load at a computed address instead of M-1 compares and
-// selects on registers.
-template <int S, int M>
-__device__ __forceinline__ void acs_step_smem(const float (&src)[S], float (&dst)[S],
-                                              const float* bmcol, bool hard,
-                                              const TrellisTables& tt,
-                                              unsigned (&words)[(S + 31) / 32]) {
-  constexpr int NW = (S + 31) / 32;
-  constexpr int PER = S < 32 ? S : 32;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    unsigned word = 0;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int ns = w * 32 + i;
-      const int j = ns & (S / 2 - 1);
-      float c0 = src[2 * j] + bmcol[tt.esym0[ns] * kThreads];
-      float c1 = src[2 * j + 1] + bmcol[tt.esym1[ns] * kThreads];
-      if (hard) {
-        c0 = fminf(c0, CC_HARD_SAT);
-        c1 = fminf(c1, CC_HARD_SAT);
-      }
-      const bool d = c1 < c0;
-      dst[ns] = d ? c1 : c0;
-      word |= (unsigned)d << i;
-    }
-    words[w] = word;
-  }
-}
-
 // Symbol row t of a window whose row 0 is stream position base: advance the
 // encoder, draw the channel, run one ACS step src -> dst, and store the
 // decisions (rows t >= W; S < 32: packed into acc, shift (t mod P) S, the
@@ -241,7 +208,7 @@ __device__ __forceinline__ void window_step(const LongframeParams& p, unsigned l
 #pragma unroll
   for (int e = 0; e < M; ++e) bmcol[e * kThreads] = bm[e];
   unsigned words[Pk::NW];
-  acs_step_smem<S, M>(src, dst, bmcol, !p.s.soft, p.tt, words);
+  acs_step_smem<S, kThreads>(src, dst, bmcol, !p.s.soft, p.tt, words);
   const size_t lanes = (size_t)p.lanes;
   if constexpr (Pk::P > 1) {
     const int i = t & (Pk::P - 1);
@@ -569,7 +536,7 @@ extern "C" {
 // of rows 32 (j + floor(W / 32)) .. + 31 as word j of [floor((W + Wn - 1)
 // / 32) - floor(W / 32) + 1, lanes].  flip_below: a BSC coded bit flips
 // where its draw's 31-bit integer is below it
-// (ops/fused_longframe.flip_threshold).  group: threads per lane, which
+// (ops/fused_chain.flip_threshold).  group: threads per lane, which
 // must be 1 up to S = 64 and S / 32 from S = 128
 // (ops/fused_longframe.threads_per_lane).  Host arrays: esym_prev
 // [S, 2] int32, points [M, 2] float32, polys [symlen] uint32.  Returns
@@ -597,20 +564,7 @@ int cc_mc_longframe(int* out, unsigned* scratch, unsigned* info, int lanes, int 
   p.win0 = win0;
   p.lanes = lanes;
   p.flip_below = flip_below;
-  p.esym_tab = 0;
-  p.esym_packed = (1 << K) * symlen <= 64;
-  if (p.esym_packed) {
-    for (unsigned reg = 0; reg < (1u << K); ++reg) {
-      unsigned esym = 0;
-      for (int n = 0; n < symlen; ++n) {
-        const unsigned x = reg & polys[n];
-        unsigned bit = (unsigned)__builtin_parity(x);
-        if (qmask) bit &= 1u - (unsigned)__builtin_parity(x & qmask);
-        esym = (esym << 1) | bit;
-      }
-      p.esym_tab |= (unsigned long long)esym << (reg * symlen);
-    }
-  }
+  p.esym_tab = pack_esym_table(K, symlen, polys, qmask, &p.esym_packed);
   const long long threads = (long long)lanes * group;
   const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
   int status = 0;

@@ -73,6 +73,24 @@ def _interp_uniform(idx: torch.Tensor, base: torch.Tensor, salt: int) -> torch.T
     return bits * torch.tensor(2.0 ** -31) + torch.tensor(2.0 ** -32)
 
 
+def flip_threshold(param: float) -> int:
+    """The least 31-bit integer b whose uniform ``b * 2^-31 + 2^-32``
+    (float32, as :func:`_interp_uniform` and ``fused_longframe.coord_uniform``)
+    is not below ``param``: a BSC coded bit flips exactly where its draw's
+    ``bits >> 1`` is below it, as the uniform is non-decreasing in b.  2^31
+    where every draw flips."""
+    p = np.float32(param)
+    lo, hi = 0, 1 << 31
+    while lo < hi:   # the least b with u(b) >= p, by bisection
+        mid = (lo + hi) // 2
+        u = np.float32(mid) * np.float32(2.0 ** -31) + np.float32(2.0 ** -32)
+        if u >= p:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
 def _hbase(seed: int, tile: torch.Tensor) -> torch.Tensor:
     """Per-tile hash base (``_hbase_for``): lowbias32(seed*φ ^ (tile+1)*c)."""
     s = mul32(torch.full_like(tile, seed & MASK32), 0x9E3779B9)
@@ -178,8 +196,10 @@ def mc_chain_viterbi_ref(code: Code, batch: int, nsteps: int, seed, param,
 def _lib():
     lib = load_library("fused_chain")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.cc_mc_chain.argtypes = [P, I, I, I, U, F, I, I, I, I, I, I, P, P, P, U, F, P]
+    lib.cc_mc_chain.argtypes = [P, I, I, I, U, F, U, I, I, I, I, I, I, P, P, P, U, F, P]
     lib.cc_mc_chain.restype = I
+    lib.cc_sincos_check.argtypes = [P, U, U, P]
+    lib.cc_sincos_check.restype = I
     return lib
 
 
@@ -210,7 +230,8 @@ def mc_chain_viterbi(code: Code, batch: int, nsteps: int, seed, param,
     with torch.cuda.device(device):
         status = _lib().cc_mc_chain(
             out.data_ptr(), batch, Bt, int(nsteps), int(seed) & MASK32, float(param),
-            int(channel == "bsc"), int(demapper == "hard"), code.constraint_length,
+            flip_threshold(param) if channel == "bsc" else 0, int(channel == "bsc"),
+            int(demapper == "hard"), code.constraint_length,
             code.block_length, code.num_block_symbols, code.symlen_out,
             tables.esym_prev_np.ctypes.data, tables.points_np.ctypes.data,
             polys.ctypes.data, tables.quirk_mask, tables.inv_nd,
@@ -221,3 +242,22 @@ def mc_chain_viterbi(code: Code, batch: int, nsteps: int, seed, param,
 
 
 mc_chain_viterbi.launches = 0
+
+
+def sincos_mismatches(n: int, seed: int, device="cuda") -> Tuple[int, int]:
+    """The kernel's ``sincosf`` against the pair ``sinf``, ``cosf`` on the
+    card: the angles 2π u of the chain's Box-Muller for the uniforms u of
+    flat indices 0 .. n-1 (salt 2, the hash base of ``seed``'s tile 0 and
+    step 0).  Returns how many sines and how many cosines differ in any bit
+    (both 0 where the kernel draws the bits of the pair)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"sincos_mismatches runs on the card, got {device}")
+    sbase = int(_hbase(int(seed), torch.zeros(1, dtype=torch.int64))[0])
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        status = _lib().cc_sincos_check(counts.data_ptr(), int(n), sbase,
+                                        torch.cuda.current_stream().cuda_stream)
+    check_status(status, "sincos_mismatches")
+    s, c = counts.tolist()
+    return s, c

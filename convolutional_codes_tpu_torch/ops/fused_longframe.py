@@ -37,14 +37,13 @@ import ctypes
 import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.encoder import register_symbols
 from convolutional_codes_tpu_torch.ops.fused_chain import (
-    CHANNELS, DEMAPPERS, MAX_POINTS, MAX_STATES, _TWO_PI, _dist_vec, _snap)
+    CHANNELS, DEMAPPERS, MAX_POINTS, MAX_STATES, _TWO_PI, _dist_vec, _snap, flip_threshold)
 from convolutional_codes_tpu_torch.ops.viterbi import (
     HARD_METRIC_SAT, acs_scan, hard_branch_metrics, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import MASK32, first_argmin, mul32
@@ -167,23 +166,6 @@ def mc_longframe_viterbi_ref(code: Code, lanes: int, nsteps: int, seed, param,
         errs += mism.sum(1, dtype=torch.int32)
         werrs += mism.any(1).to(torch.int32)
     return errs, werrs
-
-
-def flip_threshold(param: float) -> int:
-    """The least 31-bit integer b whose uniform ``b * 2^-31 + 2^-32`` (float32,
-    as :func:`coord_uniform`) is not below ``param``: a BSC coded bit flips
-    exactly where its draw's ``bits >> 1`` is below it, as the uniform is
-    non-decreasing in b.  2^31 where every draw flips."""
-    p = np.float32(param)
-    lo, hi = 0, 1 << 31
-    while lo < hi:   # the least b with u(b) >= p, by bisection
-        mid = (lo + hi) // 2
-        u = np.float32(mid) * np.float32(2.0 ** -31) + np.float32(2.0 ** -32)
-        if u >= p:
-            hi = mid
-        else:
-            lo = mid + 1
-    return lo
 
 
 def decision_scratch_shape(num_states: int, window: int, warmup: int,

@@ -8,9 +8,10 @@ include no PyTorch header, which keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that every
 product is rounded before it is added, as in the reference's C code; no
-fast-math.  ``fano_mc.cu``, ``longframe.cu`` and ``longframe_mc.cu`` are
-also built with ``-Xptxas -v``, whose report (registers, stack frame,
-spills per kernel) is kept in ``build_log``.
+fast-math.  ``fano_mc.cu``, ``fused_chain.cu``, ``longframe.cu`` and
+``longframe_mc.cu`` are also built with ``-Xptxas -v``, whose report
+(registers, stack frame, spills per kernel) is kept in ``build_log``
+(``EXTRA_FLAGS``).
 nvcc's messages are kept beside each library, ``lib<name>-<hash>.log``,
 so a library loaded from an earlier build still has its report.
 """
@@ -34,8 +35,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "--split-compile=0")   # optimise the template instances in parallel
 
-#: flags some libraries take on top of NVCC_FLAGS
-EXTRA_FLAGS = {name: ("-Xptxas", "-v") for name in ("fano_mc", "longframe", "longframe_mc")}
+#: flags some libraries take on top of NVCC_FLAGS: the ptxas report, and
+#: for the fused chain ptxas's least register-usage optimisation (at the
+#: default level it spilled 4 bytes in the S = 8, M = 4 instances to stay
+#: at 48 and 56 registers)
+EXTRA_FLAGS = {name: ("-Xptxas", "-v")
+               for name in ("fano_mc", "fused_chain", "longframe", "longframe_mc")}
+EXTRA_FLAGS["fused_chain"] += ("-Xptxas", "--register-usage-level=0")
 
 #: every kernel library of the package
 LIBRARIES = ("longframe", "fused_chain", "mc_datagen", "stack_mc", "fano_mc",
@@ -76,10 +82,15 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is (or will be) built."""
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    out = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+    out = library_path(name)
     log = out.with_suffix(".log")
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
