@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --wide-longframe DIR   # only kernel 6 at S = 128, 256, from DIR
-    python3 chip_smoke.py --kernel-times DIR     # only kernels 1, 3, 4 and 6, from DIR
+    python3 chip_smoke.py --kernel-times DIR [REF]  # only kernels 1, 3, 4, 6-10, from DIR
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch, CUDA, nvcc, Triton;
   2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``
      (one nvcc per source, side by side), and print the ``-Xptxas -v``
      report of the Fano kernels (no spills; kernel 10 with a 0-byte stack
-     frame), of the fused chain and of the long-frame kernels (no spills
+     frame), of the stack kernels (no spills; kernel 9 with a 0-byte stack
+     frame, kernel 7's pinned), of the fused chain and of the long-frame kernels (no spills
      for S <= 64; kernels 3 and 6's resident warps per SM for each
      instance); read the SASS (``cuobjdump -sass``) of kernel 3's code-0
      instance (instructions per symbol: this build's issue time, printed
@@ -31,7 +32,12 @@ Phases, each of which raises on failure:
      frames, all of them, the first 1000 and the first 5, against the plain
      machines (bits, metric, iterations, every Fano diagnostic exact); the
      Fano kernels at the edges of their launch plan (more frames than
-     resident threads; frames too long for shared memory), exact; the streaming
+     resident threads; frames too long for shared memory), exact; the stack
+     kernels at the edges of their launch plan (more frames than resident
+     walks, a T past the shared layout whose path bits go to device memory,
+     lanes not a multiple of a block, several frames a lane, 5 and 1000
+     lanes) and on the compat-rewired k9-r12 and k15-r14-16qam, exact; the
+     streaming
      ACS and traceback wrappers against their plain versions (bit-exact, soft and
      tie-heavy hard, odd T, S = 4 .. 256, a two-segment traceback through the
      carry); the
@@ -66,22 +72,28 @@ Phases, each of which raises on failure:
      decode shapes, the decoders of supplied frames exactly on every frame
      of each batch, which their plain machines are timed on.  Kernel 6 is
      also timed at S = 128 and 256 (config 2's shape, thread groups),
+     kernels 7 and 9's rows beside PR 7's times (BEFORE_STACK), their plans
+     and a per-frame divergence,
      kernels 2 and 5 on both designs (and segment lengths) where the plan
      switches, each held against the plain version and printed beside its
      time before the redesign.  The Fano kernels also print their launch
-     plan, and kernel 10 is timed again on its slowest frame alone (ns per
-     walk iteration).  Kernels 1, 3 and 4 print their times beside those
+     plan, and kernels 9 and 10 are timed again on their slowest frame
+     alone (ns per walk iteration).  Kernels 1, 3 and 4 print their times beside those
      before their redesign (BEFORE_MS); kernel 3 its bound (the function's
      operations, LANE_OPS) beside this build's issue time (its SASS count),
      kernel 4 its time at B = 1 (one frame: one warp's dependent chain
      alone, which is what B = 128 runs on each SM) and its SASS
      instructions a step.
 
-``--kernel-times DIR`` times kernels 1, 3, 4 and 6 at phase 5's shapes
-(kernel 4 also soft and hard at S = 64, and at every S from 4 to 256),
-each of kernels 1 and 4 held against its plain version, with the package
-under DIR (e.g. a ``git archive`` of an older commit unpacked in
-``.scratch/``), to compare designs across commits in one call.
+``--kernel-times DIR [REF]`` times kernels 1, 3, 4 and 6-10 at phase 5's
+shapes (kernel 4 also soft and hard at S = 64, and at every S from 4 to
+256; kernel 7 at phase 5's four stack rows with fewer frames a lane;
+kernel 9 at B = 131,072 on code 0 and k9-r12), each of kernels 1, 4 and 9
+held against its plain version, with the package under DIR (e.g. a ``git
+archive`` of an older commit unpacked in ``.scratch/``), to compare
+designs across commits in one call.  Kernels 7, 8 and 10's outputs are
+saved to REF, or held equal to it where it exists (another tree's, same
+seeds).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, its largest
@@ -118,12 +130,17 @@ BEFORE_MS = {"traceback": 0.0624, "stream_traceback": {128: 5.8450, 1024: 1.5035
              "mc_longframe": (15.955, 35.200), "acs_forward": 0.1061,
              "mc_chain": 0.5826, "headline": 7.198802e10,
              "stream_acs": {128: 3.6587, 1024: 1.5473}}
+#: kernels 7 and 9 before their redesign (PR 7's chip run 12, NVIDIA H100
+#: 80GB HBM3, 700.00 W): kernel 7's info bits/s at phase 5's rows, its ms
+#: at 256 lanes x 1 frame, kernel 9's ms at B = 131,072
+BEFORE_STACK = {("k9-r12", 4.0): 8.414728e7, ("k9-r12", 8.0): 1.561747e9,
+                (0, 8.0): 2.644958e9, (0, 0.0): 7.785048e7, "mc_stack": 0.1509,
+                "stack_decode": {0: 1.481, "k9-r12": 16.590}}
 #: lane-instructions per cycle and SM (4 schedulers x 32 lanes) and SMs
 LANE_SLOTS_PER_SM, SMS = 128, 132
-#: estimated instructions per walk iteration (not measured: ncu does not
-#: run on the card's machine): the stack's 64-slot best/worst scan at ~5
-#: per slot plus ~30 for the extension; the Fano step's ~40
-INSTR_PER_ITER = {"mc_stack": 350, "mc_fano": 40, "stack_decode": 350, "fano_decode": 40}
+#: estimated instructions per walk iteration of the Fano step (not
+#: measured: ncu does not run on the card's machine)
+INSTR_PER_ITER = {"mc_fano": 40, "fano_decode": 40}
 
 
 def require(cond, what: str) -> None:
@@ -202,7 +219,7 @@ def print_ptxas(log: str) -> None:
     spill, and kernel 10's keep a 0-byte stack frame.  Kernel 8's keep
     exactly 32 bytes, the local array of sinf/cosf's reduction of huge
     arguments (its datagen's Box-Muller; never taken, the angle is below
-    2 pi), as kernel 7 does: a frame that grows fails."""
+    2 pi): a frame that grows fails."""
     import re
     require(log, "no -Xptxas -v report of fano_mc.cu")
     instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
@@ -215,6 +232,36 @@ def print_ptxas(log: str) -> None:
                 f"{kernel[0]} spills: {frame}")
         want = "32" if kernel[1] == "fano_mc_kernel" else "0"
         require(frame.startswith(f"{want} bytes stack frame"), f"{kernel[0]}: {frame}")
+
+
+#: kernel 7's stack frame in bytes: the local array of sinf/cosf's reduction
+#: of huge arguments in its datagen (never taken: the angle is below 2 pi),
+#: 32 bytes as kernel 8's, which nvcc keeps in some of kernel 7's instances
+#: and not in others
+STACK_MC_FRAME = 32
+
+
+def print_ptxas_stack(log: str) -> None:
+    """The ``-Xptxas -v`` report of ``stack_mc.cu``: kernels 7 and 9 for each
+    path-bit storage and node word, with registers, stack frame and
+    spills.  No instance may spill; kernel 9's keep a 0-byte stack frame and
+    kernel 7's either none or exactly STACK_MC_FRAME bytes: a frame that
+    grows fails."""
+    import re
+    require(log, "no -Xptxas -v report of stack_mc.cu")
+    instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
+                           r"\S+\n\s*(.*?)\n.*?(Used \d+ registers)", log, re.S)
+    require(len(instances) == 8, f"-Xptxas -v: {len(instances)} stack instances, want 8")
+    for mangled, frame, regs in instances:
+        k = re.search(r"(stack_mc_kernel|stack_decode_kernel)INS_\d+(Shared|Global)BitsELb([01])E",
+                      mangled)
+        require(k, f"unknown stack instance {mangled}")
+        print(f"ptxas: {k[1]}<bits {k[2].lower()}, {'packed' if k[3] == '1' else 'two'} node "
+              f"words>: {regs}, {frame}")
+        require(frame.endswith("0 bytes spill stores, 0 bytes spill loads"), f"{k[0]} spills: {frame}")
+        allowed = (0, STACK_MC_FRAME) if k[1] == "stack_mc_kernel" else (0,)
+        require(any(frame.startswith(f"{b} bytes stack frame") for b in allowed),
+                f"{k[0]}: {frame}")
 
 
 #: registers of one SM, the largest resident warps and blocks of one SM
@@ -682,6 +729,71 @@ def check_fano_edges(torch, dev, stats):
         require(ck is not None or not plan.nodes_shared, "long frames not in device memory")
         require(ck is None or lanes * fpl > max(resident.values()),
                 "fewer frames than resident threads")
+
+
+#: kernels 7 and 9 at the edges of their launch plan: (code, channel, point,
+#: lanes, frames per lane); None is code 0's polynomials with block_length
+#: 900 (T = 902: path bits in device memory).  More frames than resident
+#: walks, lanes not a multiple of a block, one frame a lane at 5 and 1000
+#: lanes.
+STACK_EDGES = [(0, "bsc", 0.05, 16384, 3), (0, "awgn", 4.0, 1021, 2),
+               (None, "awgn", 4.0, 256, 2), (None, "bsc", 0.03, 256, 2),
+               (0, "awgn", 3.0, 5, 1), (0, "awgn", 3.0, 1000, 1)]
+#: the compat-rewired extension codes (bench.py's ``*_compat_vs_c`` rows):
+#: (code, channel, point), 256 lanes x 2
+STACK_COMPAT = [("k9-r12", "awgn", 8.0), ("k9-r12", "bsc", 0.01),
+                ("k15-r14-16qam", "awgn", 14.0), ("k15-r14-16qam", "bsc", 0.005)]
+
+
+def check_stack_edges(torch, dev, stats):
+    """Kernels 7 and 9 against the plain machine at STACK_EDGES and on the
+    compat-rewired codes (STACK_COMPAT), each under its code's plan:
+    per-lane counters on the kernel's own frames and every output of every
+    frame exact; on BSC also against the plain version on its own datagen's
+    frames, which equal the kernel's."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.models.codebook import PARITY_COMPAT
+    from convolutional_codes_tpu_torch.ops import mc_datagen, stack, stack_cuda, stack_mc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+
+    cases = [(get_code(0).replace(name="k3-r12-long", block_length=900) if ck is None
+              else get_code(ck), ch, pt, lanes, fpl) for ck, ch, pt, lanes, fpl in STACK_EDGES]
+    cases += [(get_code(ck).replace(name=f"{ck}-compat", parity=PARITY_COMPAT), ch, pt, 256, 2)
+              for ck, ch, pt in STACK_COMPAT]
+    for code, channel, point, lanes, fpl in cases:
+        soft = channel == "awgn"
+        param = float(awgn_sigma(point)) if soft else point
+        gids = torch.arange(lanes * fpl, device=dev)
+        bits, syms = mc_datagen.frames_cuda(code, gids, 23, param, channel)
+        plain = stack.stack_machine(code, syms, soft)
+        own = torch.zeros((3, lanes), dtype=torch.int64, device=dev)
+        stack_mc.count_errors(own, gids // fpl, plain[0], bits, plain[2])
+        if not soft:   # the plain version's own frames are the kernel's
+            require(torch.equal(stack_mc.mc_stack_ref(code, lanes, fpl, 23, param, channel,
+                                                      device=dev), own),
+                    f"{code.name} BSC: the plain datagen's counters differ")
+        plan = stack_mc.code_plan(code)
+        k = stack_mc.mc_stack(code, lanes, fpl, 23, param, channel, device=dev)
+        got = stack_cuda.stack_machine_cuda(code, syms, soft)
+        torch.cuda.synchronize()
+        diff = int((k != own).any(0).sum())
+        stats["mc_stack"] = max(stats["mc_stack"], float((k - own).abs().max()))
+        bad, err = supplied_diff(torch, (got[0], {"metric": got[1], "iters": got[2]}),
+                                 (plain[0], {"metric": plain[1], "iters": plain[2]}))
+        stats["stack_decode"] = max(stats["stack_decode"], err)
+        walks = {mc: stack_mc.occupancy(mc, plan, dev.index)["blocks_per_sm"]
+                 * plan.threads * SMS for mc in (True, False)}
+        print(f"kernels 7/9 {code.name} T={code.num_block_symbols} {channel} {point:g}, "
+              f"{lanes} lanes x {fpl} ({lanes * fpl} frames, iterations max "
+              f"{int(plain[2].max())}; path bits in "
+              f"{'shared' if plan.bits_shared else 'device'} memory, resident walks "
+              f"{walks[True]}/{walks[False]}): kernel 7 {diff}/{lanes} lanes differ from the "
+              f"plain machine, kernel 9 outputs {'equal' if not bad else bad}")
+        require(diff == 0 and not bad, f"kernels 7/9 vs plain at {code.name} {channel}")
+        if (lanes, fpl) == STACK_EDGES[0][3:]:
+            require(lanes * fpl > walks[True], "fewer frames than resident walks")
+        require(code.block_length != 900 or not plan.bits_shared,
+                "long frames' path bits not in device memory")
 
 
 LONGFRAME_CASES = [  # tests/test_fused_longframe.py:41-51: (code, channel, point, demapper)
@@ -1200,18 +1312,99 @@ def mc_chain_ops_per_symbol(code) -> float:
     return ops + o["acs_state"] * code.num_states + o["traceback_row"]
 
 
+#: operations of the stack walk's function, the bound of kernels 7 and 9
+#: (counted, not measured).  The pick of an iteration's first max and first
+#: min at its least, as the kept best/worst of 8 groups of 8 slots needs
+#: it: per live group, for its kept max and its kept min each a read, a
+#: compare and two selects (8); the winners' two slots read and the
+#: rewritten group's max, min and slots stored (6); and that group rescanned,
+#: per live slot a read, two compares and four selects (7).  The group the
+#: best path sits in is written every iteration; a second one, the
+#: duplicate's, is not counted.  Per iteration besides: the best path's node
+#: (a read, its two fields, the symbol accepted: 6), per branch its register
+#: (2), per coded bit of its expected symbol 4 (and, popcount, parity,
+#: place), its metric (soft: a read, a product, an add; hard: a read and 5),
+#: the two slots written (two metric adds, two node words, four stores, the
+#: capacity test: 12), and per word of the path copied a read, an or and a
+#: write
+STACK_OPS = {"pick_group": 8, "pick": 6, "pick_slot": 7, "node": 6, "branch": 2,
+             "coded_bit": 4, "soft_metric": 3, "hard_metric": 6, "write": 12, "path_word": 3}
+#: slots of a stack walk, and of one group of its pick
+STACK_DEPTH, STACK_GROUP = 64, 8
+
+
+def stack_pick_ops(iters, frames: int) -> float:
+    """The pick's operations (STACK_OPS) summed over the iterations of walks
+    of ``iters`` iterations, where iteration i has min(i, 64) live slots:
+    exact where each entry is one walk; where each entry sums ``frames``
+    walks, the least that sum can be (a walk's count, interpolated between
+    whole iterations, is convex in its iterations, since no iteration counts
+    less than the one before)."""
+    o, n = STACK_OPS, np.arange(1, STACK_DEPTH + 1)
+    per = (o["pick_group"] * -(-n // STACK_GROUP) + o["pick"]
+           + o["pick_slot"] * np.minimum(n, STACK_GROUP))   # iteration n's count
+    done = np.concatenate([[0], np.cumsum(per)])           # the first k iterations'
+    x = iters.double().cpu().numpy() / frames
+    k = np.minimum(np.floor(x), STACK_DEPTH).astype(np.int64)
+    return float((done[k] + (x - k) * per[np.minimum(k, STACK_DEPTH - 1)]).sum()) * frames
+
+
+def datagen_ops_per_symbol(code, channel: str) -> float:
+    """Kernel 7's datagen a symbol (LANE_OPS): the info bit's hash, the
+    encoder register and expected symbol (5); on AWGN two uniforms,
+    Box-Muller (as kernel 3's) and per point a distance (6), its metric
+    (product, add) and its store; on BSC a uniform and a compare per coded
+    bit and per point a hard metric (5) and its store."""
+    o, M = LANE_OPS, code.points_per_symbol
+    ops = o["hash"] + 1 + 5
+    if channel == "awgn":
+        return ops + 2 * (o["hash"] + o["uniform"]) + o["transcendentals"] + 10 + 9 * M
+    return ops + code.symlen_out * (o["hash"] + o["uniform"] + 2) + 6 * M
+
+
+def stack_ops(code, channel: str, iters, frames: int, mc: bool) -> float:
+    """Operations of the stack walk's function (STACK_OPS) over walks of
+    ``iters`` iterations (each entry ``frames`` walks); with ``mc`` also
+    each frame's datagen and the count of its bit errors (a hash, a mask,
+    a compare and an add per info bit)."""
+    o = STACK_OPS
+    metric = o["soft_metric"] if channel == "awgn" else o["hard_metric"]
+    per_iter = (o["node"] + 2 * (o["branch"] + o["coded_bit"] * code.symlen_out + metric)
+                + o["write"] + o["path_word"] * -(-code.block_length // 32))
+    ops = stack_pick_ops(iters, frames) + per_iter * float(iters.sum())
+    if mc:
+        ops += iters.numel() * frames * (
+            code.num_block_symbols * datagen_ops_per_symbol(code, channel)
+            + code.block_length * (LANE_OPS["hash"] + 3))
+    return ops
+
+
 SEQ_RATES = [("stack", "k9-r12", 4.0), ("stack", "k9-r12", 8.0),
              ("fano", "k15-r14-16qam", 8.0), ("stack", 0, 8.0), ("fano", 0, 8.0),
              ("stack", 0, 0.0), ("fano", 0, 0.0)]
 
 
 def warp_divergence(iters) -> float:
-    """Sum over warps of 32 lanes of 32 times the warp's largest lane
-    iteration count, over the sum of iterations (1 when every lane of a warp
-    walks as long); ``iters`` holds a multiple of 32 lanes.  It describes
-    the stack kernels (7, 9: one thread per lane or frame); the Fano kernels
-    (8, 10) take frames from a queue, so their warps hold no fixed lanes."""
+    """Sum over groups of 32 entries of 32 times the group's largest count,
+    over the sum of counts (1 when every entry of a group walks as long);
+    ``iters`` holds a multiple of 32 entries.  Over per-frame iterations it
+    is what one thread a frame would cost a warp (PR 7's kernel 9; kernels
+    7-10 now take frames from a queue); over kernel 7's per-lane sums of
+    ``fpl`` frames it says little, since a lane's frames average out."""
     return float(iters.view(-1, 32).amax(dim=1).sum()) * 32 / float(iters.sum())
+
+
+def stack_plan_text(mc: bool, code, dev) -> str:
+    """Kernel 7's (``mc``) or 9's launch plan for ``code``: path bits'
+    storage, threads per block, resident walks per SM, shared bytes
+    per block, registers and local bytes per thread."""
+    from convolutional_codes_tpu_torch.ops import stack_mc
+    plan = stack_mc.code_plan(code)
+    occ = stack_mc.occupancy(mc, plan, dev.index)
+    return (f"plan: path bits in {'shared' if plan.bits_shared else 'device'} memory, "
+            f"{plan.threads} threads/block, {occ['blocks_per_sm']} blocks/SM "
+            f"({occ['blocks_per_sm'] * plan.threads} walks/SM), {plan.smem_bytes} shared "
+            f"bytes/block, {occ['registers']} registers, {occ['local_bytes']} local bytes")
 
 
 def plan_text(mc: bool, code, dev) -> str:
@@ -1228,9 +1421,26 @@ def plan_text(mc: bool, code, dev) -> str:
             f"bytes/block, {occ['registers']} registers, {occ['local_bytes']} local bytes")
 
 
-def iteration_bound_ms(name: str, iters, clock: float) -> float:
-    """Least time for ``iters`` walk iterations at the card's instruction rate."""
-    return float(iters.sum()) * INSTR_PER_ITER[name] / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3
+def iteration_bound_ms(name: str, iters, clock: float, code=None, frames: int = 1) -> float:
+    """Least time for the walks of ``iters`` iterations at the card's
+    instruction rate: the Fano walks at INSTR_PER_ITER, kernel 7 (AWGN soft,
+    ``frames`` walks an entry) at its function's operations (stack_ops)."""
+    rate = SMS * LANE_SLOTS_PER_SM * clock
+    if name == "mc_stack":
+        return stack_ops(code, "awgn", iters, frames, True) / rate * 1e3
+    return float(iters.sum()) * INSTR_PER_ITER[name] / rate * 1e3
+
+
+def frame_divergence(torch, code, seed: int, sigma: float, dev) -> str:
+    """Kernel 9 on the first 8192 frames of a kernel 7 row (the same hash
+    frames): the per-frame divergence of their iterations (warp_divergence)
+    and their largest and median."""
+    from convolutional_codes_tpu_torch.ops import mc_datagen, stack_cuda
+    _, syms = mc_datagen.frames_cuda(code, torch.arange(8192, device=dev), seed, sigma, "awgn")
+    iters = stack_cuda.stack_machine_cuda(code, syms, True)[2]
+    return (f"per-frame divergence {warp_divergence(iters):.3f} (first 8192 frames through "
+            f"kernel 9: iterations max {int(iters.max())}, median "
+            f"{float(iters.double().median()):.0f})")
 
 
 def measure_sequential(torch, dev, card, clock):
@@ -1262,10 +1472,16 @@ def measure_sequential(torch, dev, card, clock):
         bits = lanes * fpl * code.block_length
         rate = bits / ms * 1e3
         iters = out[2]
+        before = ""
         if decoder == "fano":
             spread = plan_text(True, code, dev)
         else:
-            spread = f"warp divergence {warp_divergence(iters):.3f}"
+            spread = (f"per-lane divergence of {fpl}-frame sums {warp_divergence(iters):.3f}; "
+                      f"{frame_divergence(torch, code, 1000 + n, sigma, dev)}; "
+                      f"{stack_plan_text(True, code, dev)}")
+            prior = BEFORE_STACK[(ck, snr)]
+            before = (f" (PR 7: {prior:.6e} info bits/s, {bits / prior * 1e3:.3f} ms at these "
+                      f"frames)")
         if decoder == "fano" and snr < 4.0:
             # timeout-bound: every frame walks 10000 * T SEARCH steps, which
             # the lockstep plain machine would take minutes over
@@ -1280,9 +1496,10 @@ def measure_sequential(torch, dev, card, clock):
         print(f"{decoder} {code.name} AWGN soft {snr:g} dB [{card}]: {lanes} lanes x {fpl} "
               f"frames: {rate:.6e} info bits/s ({rate / C_CORE_SEQ_BITS_PER_S[decoder]:.1f}x "
               f"the {C_CORE_SEQ_BITS_PER_S[decoder]:.2g} C core at 0 dB), BER "
-              f"{float(out[0].sum()) / bits:.6e}, kernel {ms:.3f} ms per launch, iterations "
-              f"{int(iters.sum())} (max lane {int(iters.max())}, {spread}), "
-              f"bound {iteration_bound_ms('mc_' + decoder, iters, clock):.3f} ms; {plain_txt}")
+              f"{float(out[0].sum()) / bits:.6e}, kernel {ms:.3f} ms per launch{before}, "
+              f"iterations {int(iters.sum())} (max lane {int(iters.max())}, {spread}), "
+              f"bound {iteration_bound_ms('mc_' + decoder, iters, clock, code, fpl):.3f} ms; "
+              f"{plain_txt}")
 
     code0, sigma8 = get_code(0), float(awgn_sigma(8.0))
     times, plain, bound = {}, {}, {}
@@ -1296,11 +1513,13 @@ def measure_sequential(torch, dev, card, clock):
         ref(code0, 256, 1, 5, sigma8, device=dev)
         torch.cuda.synchronize()
         plain[name] = (time.time() - t0) * 1e3
-        bound[name] = (iteration_bound_ms(name, out[2], clock), "operations")
+        bound[name] = (iteration_bound_ms(name, out[2], clock, code0), "operations")
+        per = ("its function's operations, STACK_OPS" if decoder == "stack"
+               else f"x {INSTR_PER_ITER[name]} instructions")
+        prior = f", PR 7 {BEFORE_STACK[name]:.4f} ms" if decoder == "stack" else ""
         print(f"{name} [{card}]: code 0 AWGN 8 dB, 256 lanes x 1 frame: kernel "
-              f"{times[name]:.4f} ms (median of 20 launches), plain {plain[name]:.4f} ms, "
-              f"bound {bound[name][0]:.4f} ms "
-              f"({int(out[2].sum())} iterations x {INSTR_PER_ITER[name]} instructions)")
+              f"{times[name]:.4f} ms (median of 20 launches{prior}), plain {plain[name]:.4f} ms, "
+              f"bound {bound[name][0]:.4f} ms ({int(out[2].sum())} iterations, {per})")
     return times, plain, bound
 
 
@@ -1353,7 +1572,7 @@ def measure_supplied(torch, dev, card, clock, stats):
     kernel time (CUDA events, median of 20 launches), decode-only and chain info bits/s, BER,
     iterations, warp divergence (kernel 9) and the bound; the plain machine
     on the same whole batch, timed and held exactly against the kernel.
-    Kernel 10 also alone on its slowest frame, and its launch plan."""
+    Each kernel also alone on its slowest frame, and its launch plan."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
     from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
@@ -1386,7 +1605,12 @@ def measure_supplied(torch, dev, card, clock, stats):
         # Fano timeout_left and depth) written once
         out_bytes = L * 4 + 4 + 8 + (8 if decoder == "fano" else 0)
         bytes_ms = B * (T * M * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = float(iters.sum()) * INSTR_PER_ITER[name] / slots * 1e3
+        if decoder == "stack":
+            ops_ms = stack_ops(code, "awgn", iters, 1, False) / slots * 1e3
+            est = "its function's operations, STACK_OPS"
+        else:
+            ops_ms = float(iters.sum()) * INSTR_PER_ITER[name] / slots * 1e3
+            est = f"{INSTR_PER_ITER[name]} instr./iteration est."
         b_ms = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
         t0 = time.time()
         want = decode_plain(decoder, code, d, True, FANO_TIMEOUT)
@@ -1396,37 +1620,38 @@ def measure_supplied(torch, dev, card, clock, stats):
         require(not bad, f"{name} vs plain at {code.name} B={B}: {bad} differ")
         stats[name] = max(stats[name], err)
         spread = ("" if decoder == "fano"
-                  else f", warp divergence {warp_divergence(iters):.3f}")
+                  else f", per-frame divergence {warp_divergence(iters):.3f}")
+        prior = (f" (PR 7: {BEFORE_STACK[name][ck]:.3f} ms)"
+                 if decoder == "stack" and ck in BEFORE_STACK[name] else "")
         print(f"{name} [{card}]: {code.name} AWGN soft 8 dB, B={B}: kernel {ms:.3f} ms per "
-              f"launch (median of 20), decode {B * L / ms * 1e3:.6e} info bits/s, chain "
+              f"launch (median of 20){prior}, decode {B * L / ms * 1e3:.6e} info bits/s, chain "
               f"{chain_bits / chain_s:.6e} "
               f"info bits/s ({chain_s * 1e3:.1f} ms per step), BER {ber:.6e}, iterations "
               f"{int(iters.sum())} (max frame {int(iters.max())}, median "
               f"{float(iters.double().median()):.0f}{spread}), bound {b_ms[0]:.4f} ms "
               f"({b_ms[1]}; operations "
-              f"{ops_ms:.4f} ms at {INSTR_PER_ITER[name]} instr./iteration est., bytes "
+              f"{ops_ms:.4f} ms at {est}, bytes "
               f"{bytes_ms:.4f} ms); plain machine on the same {B} frames: {plain_ms:.1f} ms, "
               f"outputs equal")
-        if decoder == "fano":
-            print(f"  {fano_alone(torch, code, d, got)}; "
-                  f"{plan_text(False, code, dev)}")
+        plan_line = (plan_text if decoder == "fano" else stack_plan_text)(False, code, dev)
+        print(f"  {slowest_alone(torch, decoder, code, d, got)}; {plan_line}")
         if name not in times:
             times[name], plain[name], bound[name] = ms, plain_ms, b_ms
         del got, d, bits
     return times, plain, bound
 
 
-def fano_alone(torch, code, d, got) -> str:
-    """Kernel 10 launched again on the batch's slowest frame alone (the
+def slowest_alone(torch, decoder: str, code, d, got) -> str:
+    """Kernel 9 or 10 launched again on the batch's slowest frame alone (the
     serial chain of one walk: ns per iteration), held against the first
     launch (``got``)."""
-    from convolutional_codes_tpu_torch.ops.fano_cuda import fano_decode_cuda
+    from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
     iters = got[1]["iters"]
     j = int(iters.argmax())
-    alone, alone_ms = cuda_call(lambda: fano_decode_cuda(code, d[j:j + 1], True,
-                                                         with_diag=True))
+    alone, alone_ms = cuda_call(lambda: decode_supplied(decoder, code, d[j:j + 1], True,
+                                                        FANO_TIMEOUT))
     require(torch.equal(alone[0][0], got[0][j]) and int(alone[1]["iters"][0]) == int(iters[j]),
-            "kernel 10 on its slowest frame alone differs")
+            f"{decoder} decode of its slowest frame alone differs")
     return (f"slowest frame alone (B=1, {int(iters[j])} iterations): {alone_ms:.3f} ms, "
             f"{alone_ms * 1e6 / int(iters[j]):.1f} ns per iteration")
 
@@ -1656,12 +1881,76 @@ KERNEL4_TIMES = ((0, 262144, 42, False), ("nasa-k7", 128, 65536, False),
                  ("k9-r12", 128, 16384, False))
 
 
-def kernel_times(torch, dev, card) -> None:
-    """Kernels 1, 3, 4 and 6 of the package first on sys.path at phase 5's
-    shapes, device milliseconds (CUDA events, mean of warm launches) on the
-    same inputs from any tree: kernel 3 at the headline shape per MC step,
-    kernel 1 and kernel 4 at KERNEL4_TIMES' shapes, kernel 6 at configs 0
-    and 2."""
+#: kernel 7 in ``--kernel-times``: phase 5's four stack rows at 8192 lanes
+#: with fewer frames a lane, (code, Eb/N0, frames per lane)
+KERNEL7_TIMES = (("k9-r12", 4.0, 32), ("k9-r12", 8.0, 256), (0, 8.0, 1024), (0, 0.0, 64))
+
+
+def sequential_times(torch, dev, ref_path) -> None:
+    """Kernels 7-10 in ``--kernel-times``: kernel 7 at KERNEL7_TIMES, kernel
+    9 on the chain's code-0 and k9-r12 frames at B = 131,072 (held against
+    the plain machine on them), kernel 8 at code 0 AWGN 8 dB (8192 lanes x
+    64) and kernel 10 at code 0, B = 131,072.  Kernels 7, 8 and 10's
+    outputs go to ``ref_path`` when it does not exist yet, else they must
+    equal what it holds (another tree's, same seeds)."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano_cuda import fano_decode_cuda
+    from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano
+    from convolutional_codes_tpu_torch.ops.stack_cuda import stack_machine_cuda
+    from convolutional_codes_tpu_torch.ops.stack_mc import mc_stack
+    from convolutional_codes_tpu_torch.sim.chain import chain_frames
+
+    outs = {}
+    for ck, snr, fpl in KERNEL7_TIMES:
+        code, sigma = get_code(ck), float(awgn_sigma(snr))
+        run = lambda: mc_stack(code, 8192, fpl, 500, sigma, device=dev)
+        outs[f"kernel 7 {code.name} {snr:g} dB"] = run().cpu()
+        ms = cuda_ms(run, 2)
+        print(f"  kernel 7: {code.name} AWGN soft {snr:g} dB, 8192 lanes x {fpl}: {ms:.3f} ms "
+              f"per launch ({8192 * fpl * code.block_length / ms * 1e3:.6e} info bits/s)")
+    sigma8 = float(awgn_sigma(8.0))
+    for n, ck in enumerate((0, "k9-r12")):
+        code = get_code(ck)
+        _, d = chain_frames(code, "awgn", SUPPLIED_FRAMES,
+                            torch.Generator(device=dev).manual_seed(70 + 2 * n), sigma8)
+        run = lambda: stack_machine_cuda(code, d, True)
+        got = run()
+        ms = cuda_ms(run, 10)
+        bad, _ = supplied_diff(torch, (got[0], {"metric": got[1], "iters": got[2]}),
+                               decode_plain("stack", code, d, True, 0))
+        require(not bad, f"kernel 9 {code.name}: {bad} differ from the plain machine")
+        print(f"  kernel 9: {code.name} AWGN soft 8 dB, B={SUPPLIED_FRAMES}: {ms:.4f} ms, "
+              f"equal to the plain machine")
+        del d
+    code = get_code(0)
+    run = lambda: mc_fano(code, 8192, 64, 500, sigma8, device=dev)
+    outs["kernel 8 code 0 8 dB"] = run().cpu()
+    print(f"  kernel 8: code 0 AWGN soft 8 dB, 8192 lanes x 64: {cuda_ms(run, 2):.3f} ms")
+    _, d = chain_frames(code, "awgn", SUPPLIED_FRAMES, torch.Generator(device=dev).manual_seed(71),
+                        sigma8)
+    run = lambda: fano_decode_cuda(code, d, True, with_diag=True)
+    bits, diag = run()
+    outs["kernel 10 code 0 8 dB"] = torch.stack([bits.sum(1).long(), diag["iters"]]).cpu()
+    print(f"  kernel 10: code 0 AWGN soft 8 dB, B={SUPPLIED_FRAMES}: {cuda_ms(run, 5):.4f} ms")
+    if ref_path is None:
+        return
+    if not os.path.exists(ref_path):
+        torch.save(outs, ref_path)
+        print(f"  outputs of kernels 7, 8 and 10 saved to {ref_path}")
+        return
+    ref = torch.load(ref_path)
+    require(ref.keys() == outs.keys() and all(torch.equal(ref[k], v) for k, v in outs.items()),
+            f"kernels 7, 8, 10: outputs differ from {ref_path}")
+    print(f"  outputs of kernels 7, 8 and 10 equal to {ref_path}'s")
+
+
+def kernel_times(torch, dev, card, ref_path=None) -> None:
+    """Kernels 1, 3, 4 and 6-10 of the package first on sys.path at phase
+    5's shapes, device milliseconds (CUDA events, mean of warm launches) on
+    the same inputs from any tree: kernel 3 at the headline shape per MC
+    step, kernel 1 and kernel 4 at KERNEL4_TIMES' shapes, kernel 6 at
+    configs 0 and 2, kernels 7-10 as ``sequential_times``."""
     import convolutional_codes_tpu_torch as pkg
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.ops import fused_longframe as fl
@@ -1714,6 +2003,7 @@ def kernel_times(torch, dev, card) -> None:
         run()
         print(f"  kernel 6: {code.name} {channel}, {lanes} lanes x {windows} windows: "
               f"{cuda_ms(run, 3):.3f} ms per launch")
+    sequential_times(torch, dev, ref_path)
 
 
 def main() -> int:
@@ -1728,9 +2018,10 @@ def main() -> int:
         from convolutional_codes_tpu_torch.ops import fused_longframe as fl
         measure_longframe_wide(torch, torch.device("cuda", 0), card_line(), fl, False)
         return 0
-    if sys.argv[1:2] == ["--kernel-times"]:   # kernels 1, 3, 4 and 6 of another tree
+    if sys.argv[1:2] == ["--kernel-times"]:   # kernels 1, 3, 4 and 6-10 of another tree
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        kernel_times(torch, torch.device("cuda", 0), card_line())
+        kernel_times(torch, torch.device("cuda", 0), card_line(),
+                     sys.argv[3] if len(sys.argv) > 3 else None)
         return 0
     sys.path.insert(0, ROOT)
     t_start = time.time()
@@ -1762,6 +2053,7 @@ def main() -> int:
         for name in build.LIBRARIES:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
         print_ptxas(build.build_log.get("fano_mc", ""))
+        print_ptxas_stack(build.build_log.get("stack_mc", ""))
         print_ptxas_longframe(build.build_log)
         sass = read_sass(build)
 
@@ -1778,6 +2070,7 @@ def main() -> int:
         check_fused_kernel(torch, dev, stats)
         check_sequential_kernels(torch, dev, stats)
         check_fano_edges(torch, dev, stats)
+        check_stack_edges(torch, dev, stats)
         check_longframe_kernels(torch, dev, stats)
         check_traceback_designs(torch, dev, stats)
         check_longframe_lanes(torch, dev, stats)

@@ -77,11 +77,6 @@ constexpr unsigned kSel = 1u << 31;   // the selected flag in word 0
 constexpr int kMaxThreads = 128;      // threads per block of any plan
 constexpr int kStepsPerVote = 8;      // walk steps between two refill votes of a warp
 
-// The slot of lane `lane` of this thread's warp.
-__device__ __forceinline__ unsigned slot_in_block(unsigned lane) {
-  return (threadIdx.x & ~31u) + lane;
-}
-
 // A slot's node records in shared memory: word w of node t at
 // base[(w * T + t) * blockDim.x], base = smem + slot.
 struct SharedNodes {
@@ -110,71 +105,6 @@ struct GlobalNodes {
     return base[((size_t)w * T + t) * stride];
   }
 };
-
-// Kernel 8's metric table of lane `lane`'s slot: T * M floats of device
-// memory.
-__device__ __forceinline__ float* slot_table(float* tables, int T, int M, unsigned lane) {
-  return tables + ((size_t)blockIdx.x * blockDim.x + slot_in_block(lane)) * T * M;
-}
-
-// The encoder in registers: the polynomials in reverse order, zero beyond
-// symlen, so that an expected symbol is one branch-free expression with
-// constant shifts (seq_esym of sequential.cuh, quirk included).
-struct Encoder {
-  unsigned rpoly[CC_SEQ_MAX_SYMLEN];   // rpoly[k] = polys[symlen - 1 - k]
-  unsigned qmask, top;
-  static __device__ __forceinline__ Encoder make(const SeqParams& p) {
-    Encoder c;
-#pragma unroll
-    for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k)
-      c.rpoly[k] = k < p.symlen ? p.polys[p.symlen - 1 - k] : 0u;
-    c.qmask = p.qmask;
-    c.top = (unsigned)p.K - 1u;
-    return c;
-  }
-  // Expected symbol of the branch from `state` with input `bit`.
-  __device__ __forceinline__ unsigned esym(unsigned state, unsigned bit) const {
-    const unsigned r = state | bit << top;
-    unsigned e = 0u;
-#pragma unroll
-    for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k) {
-      const unsigned x = r & rpoly[k];
-      e |= ((__popc(x) & ~__popc(x & qmask)) & 1u) << k;
-    }
-    return e;
-  }
-};
-
-// A frame's branch metrics as a table, made once per frame: the metric of
-// expected symbol e at node t at base[t * M + e].
-struct TableMetrics {
-  const float* base;
-  unsigned M;
-  __device__ __forceinline__ float at(int t, unsigned e) const {
-    return base[(unsigned)t * M + e];
-  }
-};
-
-// A supplied frame's branch metrics computed at each step from its symbols
-// in device memory ([T][M] distances or [T] received symbols; seq_metric).
-struct FrameMetrics {
-  const SeqDecoderParams* p;
-  const float* fs;
-  __device__ __forceinline__ float at(int t, unsigned e) const {
-    return seq_metric(*p, fs, (const int*)fs, 1, t, e);
-  }
-};
-
-// Branch metrics of seq_metric, with the same float operations: soft from
-// a distance d, hard from the received symbol rx and the expected symbol e.
-__device__ __forceinline__ float soft_metric(const SeqDecoderParams& p, float d) {
-  return 1.0f + __fmul_rn(p.weight, d);
-}
-
-__device__ __forceinline__ float hard_metric(const SeqDecoderParams& p, unsigned e, unsigned rx) {
-  const int h = __popc(e ^ rx);
-  return (float)(h * p.wrong + (p.s.symlen - h) * p.correct);
-}
 
 template <class Nodes>
 __device__ __forceinline__ void put_node(const Nodes& n, int t, unsigned w0, float nm, float m0,
@@ -295,44 +225,6 @@ __device__ __forceinline__ void fano_step(Walk& w, const Nodes& n, const Metrics
       n.word(0, w.cur) = w.state;
     }
     w.backtrack = false;
-  }
-}
-
-// Refills and retirements are collective over the lanes of a warp still
-// in its loop (`alive`): a lane whose walk has stopped hands its frame to
-// all of them, which share its writing out and the making of its next
-// frame, so the work that is not a walk step runs on every lane instead
-// of one lane at a time.  Rank r of the n alive lanes takes the part r of
-// each such loop.
-struct Crew {
-  unsigned alive, lane;
-  int rank, n;
-  __device__ __forceinline__ void set(unsigned mask) {
-    alive = mask;
-    rank = __popc(alive & ((1u << lane) - 1u));
-    n = __popc(alive);
-  }
-};
-
-// Frame gid's metric table into the table `buf` of another lane, made by
-// the crew: rank r makes symbols [r * seg, (r + 1) * seg) with gen_symbol,
-// its encoder register primed with the K-1 info bits before them, and
-// writes their metrics without reading the table back.
-__device__ __forceinline__ void crew_gen(const SeqDecoderParams& p, const Crew& c, unsigned gid,
-                                         float* buf) {
-  const int T = p.s.T, K = p.s.K, M = p.s.M;
-  const int seg = (T + c.n - 1) / c.n, t0 = c.rank * seg, t1 = min(T, t0 + seg);
-  unsigned reg = 0u;
-  for (int t = max(0, t0 - K + 1); t < t0; ++t)
-    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
-  for (int t = t0; t < t1; ++t) {
-    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
-    float* row = buf + (unsigned)t * M;
-    const unsigned rx = gen_symbol(p.s, gid, t, seq_esym(reg, p.s), [&](int e, float d) {
-      row[e] = soft_metric(p, d);
-    });
-    if (!p.s.soft)
-      for (int e = 0; e < M; ++e) row[e] = hard_metric(p, (unsigned)e, rx);
   }
 }
 

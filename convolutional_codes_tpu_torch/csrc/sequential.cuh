@@ -1,7 +1,9 @@
 // Device code shared by the sequential kernels (stack_mc.cu, fano_mc.cu:
 // the Monte-Carlo kernels and the decoders of supplied frames) and the
 // frames entry (mc_datagen.cu): the coordinate hash, the encoder branch
-// with the compat quirk, the per-frame datagen and the branch metric.
+// with the compat quirk, the per-frame datagen, the branch metric, and
+// the machinery of the persistent walks (slots, encoder, metric tables,
+// the crew of a warp).
 //
 // The hash is the JAX package's coord_bits / coord_uniform
 // (ops/fused_longframe.py:56-81) and the datagen its ops/mc_datagen.py
@@ -132,15 +134,6 @@ __device__ __forceinline__ unsigned seq_esym(unsigned reg, const SeqParams& p) {
   return esym;
 }
 
-// Branch from a K-1-bit state with one input: r = state | input << (K-1),
-// next state r >> 1; returns the expected symbol.
-__device__ __forceinline__ unsigned seq_branch(unsigned state, unsigned input,
-                                               const SeqParams& p, unsigned* next) {
-  const unsigned r = state | (input << (p.K - 1));
-  *next = r >> 1;
-  return seq_esym(r, p);
-}
-
 // Channel output of symbol t of frame gid, whose expected symbol is esym:
 // out(e, d) for the AWGN distance d of each point e (returns 0), or the
 // BSC received symbol returned (out unused).
@@ -206,4 +199,116 @@ __device__ __forceinline__ float seq_metric(const SeqDecoderParams& p, const flo
   if (p.s.soft) return 1.0f + __fmul_rn(p.weight, fs[((size_t)t * p.s.M + e) * stride]);
   const int h = __popc(e ^ (unsigned)is[(size_t)t * stride]);
   return (float)(h * p.wrong + (p.s.symlen - h) * p.correct);
+}
+
+// The persistent walks of the stack and Fano kernels: slots, the encoder
+// in registers, branch metrics (a table per frame or computed from a
+// supplied frame), and the crew that shares a warp's refills.
+
+// The slot of lane `lane` of this thread's warp.
+__device__ __forceinline__ unsigned slot_in_block(unsigned lane) {
+  return (threadIdx.x & ~31u) + lane;
+}
+
+// The metric table of lane `lane`'s slot in a Monte-Carlo kernel (7, 8):
+// T * M floats of device memory.
+__device__ __forceinline__ float* slot_table(float* tables, int T, int M, unsigned lane) {
+  return tables + ((size_t)blockIdx.x * blockDim.x + slot_in_block(lane)) * T * M;
+}
+
+// The encoder in registers: the polynomials in reverse order, zero beyond
+// symlen, so that an expected symbol is one branch-free expression with
+// constant shifts (seq_esym above, quirk included).
+struct Encoder {
+  unsigned rpoly[CC_SEQ_MAX_SYMLEN];   // rpoly[k] = polys[symlen - 1 - k]
+  unsigned qmask, top;
+  static __device__ __forceinline__ Encoder make(const SeqParams& p) {
+    Encoder c;
+#pragma unroll
+    for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k)
+      c.rpoly[k] = k < p.symlen ? p.polys[p.symlen - 1 - k] : 0u;
+    c.qmask = p.qmask;
+    c.top = (unsigned)p.K - 1u;
+    return c;
+  }
+  // Expected symbol of the branch from `state` with input `bit`.
+  __device__ __forceinline__ unsigned esym(unsigned state, unsigned bit) const {
+    const unsigned r = state | bit << top;
+    unsigned e = 0u;
+#pragma unroll
+    for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k) {
+      const unsigned x = r & rpoly[k];
+      e |= ((__popc(x) & ~__popc(x & qmask)) & 1u) << k;
+    }
+    return e;
+  }
+};
+
+// A frame's branch metrics as a table, made once per frame: the metric of
+// expected symbol e at node t at base[t * M + e].
+struct TableMetrics {
+  const float* base;
+  unsigned M;
+  __device__ __forceinline__ float at(int t, unsigned e) const {
+    return base[(unsigned)t * M + e];
+  }
+};
+
+// A supplied frame's branch metrics computed at each step from its symbols
+// in device memory ([T][M] distances or [T] received symbols; seq_metric).
+struct FrameMetrics {
+  const SeqDecoderParams* p;
+  const float* fs;
+  __device__ __forceinline__ float at(int t, unsigned e) const {
+    return seq_metric(*p, fs, (const int*)fs, 1, t, e);
+  }
+};
+
+// Branch metrics of seq_metric, with the same float operations: soft from
+// a distance d, hard from the received symbol rx and the expected symbol e.
+__device__ __forceinline__ float soft_metric(const SeqDecoderParams& p, float d) {
+  return 1.0f + __fmul_rn(p.weight, d);
+}
+
+__device__ __forceinline__ float hard_metric(const SeqDecoderParams& p, unsigned e, unsigned rx) {
+  const int h = __popc(e ^ rx);
+  return (float)(h * p.wrong + (p.s.symlen - h) * p.correct);
+}
+
+// Refills and retirements are collective over the lanes of a warp still
+// in its loop (`alive`): a lane whose walk has stopped hands its frame to
+// all of them, which share its writing out and the making of its next
+// frame, so the work that is not a walk step runs on every lane instead
+// of one lane at a time.  Rank r of the n alive lanes takes the part r of
+// each such loop.
+struct Crew {
+  unsigned alive, lane;
+  int rank, n;
+  __device__ __forceinline__ void set(unsigned mask) {
+    alive = mask;
+    rank = __popc(alive & ((1u << lane) - 1u));
+    n = __popc(alive);
+  }
+};
+
+// Frame gid's metric table into the table `buf` of another lane, made by
+// the crew: rank r makes symbols [r * seg, (r + 1) * seg) with gen_symbol,
+// its encoder register primed with the K-1 info bits before them, and
+// writes their metrics without reading the table back.
+__device__ __forceinline__ void crew_gen(const SeqDecoderParams& p, const Crew& c, unsigned gid,
+                                         float* buf) {
+  const int T = p.s.T, K = p.s.K, M = p.s.M;
+  const int seg = (T + c.n - 1) / c.n, t0 = c.rank * seg, t1 = min(T, t0 + seg);
+  unsigned reg = 0u;
+  for (int t = max(0, t0 - K + 1); t < t0; ++t)
+    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
+  for (int t = t0; t < t1; ++t) {
+    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
+    float* row = buf + (unsigned)t * M;
+    const unsigned rx = gen_symbol(p.s, gid, t, seq_esym(reg, p.s), [&](int e, float d) {
+      row[e] = soft_metric(p, d);
+    });
+    if (!p.s.soft)
+      for (int e = 0; e < M; ++e) row[e] = hard_metric(p, (unsigned)e, rx);
+  }
 }

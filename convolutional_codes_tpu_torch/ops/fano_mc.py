@@ -33,6 +33,8 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_machine
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
+from convolutional_codes_tpu_torch.ops.sequential_common import (  # noqa: F401 (the plan's limits)
+    MAX_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, resident_slots)
 from convolutional_codes_tpu_torch.ops.stack_mc import count_errors
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -66,12 +68,6 @@ def mc_fano_ref(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     return out
 
 
-#: shared memory of one H100 SM and the most one block may take, in bytes;
-#: every resident block reserves 1 KB more
-SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
-#: threads per block of any plan (``kMaxThreads`` in ``csrc/fano_mc.cu``),
-#: threads and blocks an SM holds at most
-MAX_THREADS, THREADS_PER_SM, BLOCKS_PER_SM = 128, 2048, 32
 #: threads per block when nothing is in shared memory
 GLOBAL_THREADS = 128
 #: bytes of one node record: {state | selected << 31, nmetric, m0, m1}
@@ -86,14 +82,6 @@ class FanoPlan:
     nodes_shared: bool     #: node records in shared memory (else device memory)
 
 
-def _resident_slots(threads: int, per_slot: int) -> int:
-    """Threads one SM holds with blocks of ``threads`` taking ``per_slot``
-    shared bytes each (registers aside)."""
-    blocks = min(BLOCKS_PER_SM, THREADS_PER_SM // threads,
-                 SMEM_PER_SM // (threads * per_slot + SMEM_RESERVED))
-    return blocks * threads
-
-
 def fano_plan(T: int) -> FanoPlan:
     """The launch plan of a walk over frames of ``T`` nodes.
 
@@ -106,7 +94,7 @@ def fano_plan(T: int) -> FanoPlan:
     if 32 * per_slot > SMEM_PER_BLOCK:
         return FanoPlan(GLOBAL_THREADS, 0, False)
     fits = [n for n in range(32, MAX_THREADS + 1, 32) if n * per_slot <= SMEM_PER_BLOCK]
-    threads = max(fits, key=lambda n: (_resident_slots(n, per_slot), -n))
+    threads = max(fits, key=lambda n: (resident_slots(n, per_slot), -n))
     return FanoPlan(threads, threads * per_slot, True)
 
 

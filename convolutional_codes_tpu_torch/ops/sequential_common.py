@@ -15,7 +15,8 @@ reference's ``force_rounded`` guard (against XLA-CPU's contraction) is the
 identity here and is left out.
 
 The machines advance every frame of a batch by one micro-step at a time
-(:func:`run_lockstep`).
+(:func:`run_lockstep`).  The launch plans of the CUDA walks (stack and
+Fano) share the card's limits below and :func:`resident_slots`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,23 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.utils.bitops import parity32, popcount32
+
+#: shared memory of one H100 SM and the most one block may take, in bytes;
+#: every resident block reserves 1 KB more
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+#: threads per block of any plan of the walks (``kMaxThreads`` in
+#: ``csrc/fano_mc.cu`` and ``csrc/stack_mc.cu``), threads and blocks an SM
+#: holds at most
+MAX_THREADS, THREADS_PER_SM, BLOCKS_PER_SM = 128, 2048, 32
+
+
+def resident_slots(threads: int, per_slot: int) -> int:
+    """Threads one SM holds with blocks of ``threads`` taking ``per_slot``
+    shared bytes each (registers aside)."""
+    blocks = min(BLOCKS_PER_SM, THREADS_PER_SM // threads,
+                 SMEM_PER_SM // (threads * per_slot + SMEM_RESERVED))
+    return blocks * threads
+
 
 #: micro-steps between all-done checks (a done frame's micro-step is a
 #: no-op, so overrunning is free and saves a host sync per step)

@@ -4,13 +4,16 @@
 It replaces the TPU kernel ``_stack_kernel`` (stack_pallas.py:86) behind
 ``stack_decode_pallas`` (:338) and returns what that returns: ``[B,
 block_length]`` int32 bits and, with ``with_metric``, the winning path
-metric per frame (float32 soft, int32 hard, stack_pallas.py:334).  One
-thread walks one frame with the serial 64-path stack search that the
-Monte-Carlo kernel (``ops/stack_mc.py``) also runs, so bits, metric and
-iterations equal the plain machine's (:func:`ops.stack.stack_machine`)
-exactly.  The TPU entry's tile and watchdog arguments (``block_lanes``,
-``iters_per_call``, ``iters_first``, ``max_calls``, ``interpret``) have no
-counterpart: one launch runs every walk to its end.
+metric per frame (float32 soft, int32 hard, stack_pallas.py:334).  A
+persistent grid takes the frames from a queue and walks each with the
+64-path stack search that the Monte-Carlo kernel (``ops/stack_mc.py``) also
+runs, under the same launch plan (:func:`ops.stack_mc.stack_plan`), so
+bits, metric and iterations equal the plain machine's
+(:func:`ops.stack.stack_machine`) exactly.  The kernel reads the frames in
+the layout they come in, ``[B, T, 2^m]`` or ``[B, T]``.  The TPU entry's
+tile and watchdog arguments (``block_lanes``, ``iters_per_call``,
+``iters_first``, ``max_calls``, ``interpret``) have no counterpart: one
+launch runs every walk to its end.
 
 The wrappers take CUDA tensors only and raise ``ValueError`` otherwise;
 the plain machine is the CPU's decoder (``sim/chain.py`` picks by device).
@@ -19,8 +22,6 @@ Launches are counted in ``stack_machine_cuda.launches``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -28,7 +29,9 @@ import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
-from convolutional_codes_tpu_torch.utils.build import check_status, load_library
+from convolutional_codes_tpu_torch.ops.stack_mc import (
+    _lib, code_plan, grid_blocks, plan_args, walk_scratch)
+from convolutional_codes_tpu_torch.utils.build import check_status
 
 #: the device walks take up to this many coded bits per symbol
 #: (``CC_SEQ_MAX_SYMLEN`` in ``csrc/sequential.cuh``)
@@ -53,18 +56,6 @@ def check_frames(code: Code, symbols: torch.Tensor, soft: bool) -> None:
         raise ValueError(f"the kernels take CUDA tensors, got {symbols.device}")
 
 
-def supplied_frames(code: Code, symbols: torch.Tensor, soft: bool) -> torch.Tensor:
-    """Check supplied frames and lay them out as the stack kernel reads
-    them (the counterpart of stack_pallas.py:287 ``pack_syms``): ``soft``
-    ``[B, T, 2^m]`` distances → ``[T, 2^m, B]`` float32, hard ``[B, T]``
-    symbols → ``[T, B]`` int32.  ``soft`` decides the layout and the cast,
-    not the dtype."""
-    check_frames(code, symbols, soft)
-    if soft:
-        return symbols.to(torch.float32).permute(1, 2, 0).contiguous()
-    return symbols.to(torch.int32).T.contiguous()
-
-
 def code_args(code: Code):
     """(K, L, T, symlen, polys [symlen] uint32 host array, quirk mask): the
     code's arguments of a C decode entry."""
@@ -74,40 +65,33 @@ def code_args(code: Code):
             code.symlen_out, polys, tables.quirk_mask)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = load_library("stack_mc")
-    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.cc_stack_scratch_words.argtypes = [I, I]
-    lib.cc_stack_scratch_words.restype = ctypes.c_longlong
-    lib.cc_stack_decode.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, P]
-    lib.cc_stack_decode.restype = I
-    return lib
-
-
 def stack_machine_cuda(code: Code, symbols: torch.Tensor, soft: bool
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's twin of :func:`ops.stack.stack_machine`: decode ``[B, T,
     2^m]`` distances (soft) or ``[B, T]`` received symbols (hard) on their
     CUDA device.  Returns (bits [B, block_length] int32, winning path metric
     [B] float32, walk iterations [B] int64)."""
-    syms = supplied_frames(code, symbols, soft)
-    lib = _lib()
+    check_frames(code, symbols, soft)
+    syms = (symbols.to(torch.float32) if soft else symbols.to(torch.int32)).contiguous()
     B, dev = symbols.shape[0], symbols.device
     K, L, T, symlen, polys, qmask = code_args(code)
-    bits = torch.empty((L, B), dtype=torch.int32, device=dev)
+    plan = code_plan(code)
+    blocks = grid_blocks(False, plan, B, dev)
+    scratch = walk_scratch(plan, code, blocks * plan.threads, dev)
+    bits = torch.empty((B, L), dtype=torch.int32, device=dev)
     metric = torch.empty(B, dtype=torch.float32, device=dev)
     iters = torch.empty(B, dtype=torch.int64, device=dev)
-    scratch = torch.empty(lib.cc_stack_scratch_words(T, B), dtype=torch.int32, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        status = lib.cc_stack_decode(
-            bits.data_ptr(), metric.data_ptr(), iters.data_ptr(), scratch.data_ptr(),
-            syms.data_ptr(), B, int(soft), K, L, T, symlen, polys.ctypes.data, qmask,
-            float(code.metric_weight), int(code.bit_metrics[0]), int(code.bit_metrics[1]),
+        status = _lib().cc_stack_decode(
+            bits.data_ptr(), metric.data_ptr(), iters.data_ptr(), queue.data_ptr(),
+            scratch.data_ptr(), syms.data_ptr(), B, int(soft), K, L, T, symlen,
+            polys.ctypes.data, qmask, float(code.metric_weight), int(code.bit_metrics[0]),
+            int(code.bit_metrics[1]), *plan_args(plan), blocks, plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
     check_status(status, "stack_decode")
     stack_machine_cuda.launches += 1
-    return bits.T, metric, iters
+    return bits, metric, iters
 
 
 stack_machine_cuda.launches = 0

@@ -1,10 +1,12 @@
-"""Stack-decoder Monte-Carlo: the CUDA kernel and its plain version.
+"""Stack-decoder Monte-Carlo: the CUDA kernel, its plain version, and the
+launch plan both stack kernels of ``csrc/stack_mc.cu`` share.
 
 One launch of ``csrc/stack_mc.cu`` runs ``lanes * frames_per_lane``
-frames: lane ``g`` decodes frames ``gid = g * frames_per_lane + k`` with the
-64-path stack search, generating each in the thread from the coordinate
-hash (``ops/mc_datagen.py``) and banking its errors.  It replaces the TPU
-kernel ``_stack_mc_kernel`` (stack_mc.py:84) behind ``mc_stack`` (:419).
+frames: frame ``gid = g * frames_per_lane + k`` belongs to lane ``g``; a
+persistent grid takes the frames from a queue, makes each in the warp from
+the coordinate hash (``ops/mc_datagen.py``), decodes it with the 64-path
+stack search and adds its errors to its lane's counters.  It replaces the
+TPU kernel ``_stack_mc_kernel`` (stack_mc.py:84) behind ``mc_stack`` (:419).
 
 Unlike the JAX package's ``mc_stack``, which returns totals, both versions
 here return per-lane int64 counters ``[3, lanes]``: bit errors, frame
@@ -15,6 +17,10 @@ by the plain machine — gives the kernel's counters: exactly on BSC, and on
 AWGN up to the last-ulp differences of log/sqrt/sin/cos between math
 libraries.
 
+:func:`stack_plan` picks, from a code's T and K alone, where a walk keeps
+its path bits (shared memory or device memory), whether its next-symbol
+index and encoder state share one word, and the threads per block.
+
 ``mc_stack`` takes a ``device``: CPU runs :func:`mc_stack_ref`, CUDA
 launches the kernel (counted in ``mc_stack.launches``) or raises.
 """
@@ -22,12 +28,15 @@ launches the kernel (counted in ``mc_stack.launches``) or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
+from convolutional_codes_tpu_torch.ops.sequential_common import (
+    MAX_THREADS, SMEM_PER_BLOCK, resident_slots)
 from convolutional_codes_tpu_torch.ops.stack import STACK_DEPTH, stack_machine
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -65,39 +74,104 @@ def mc_stack_ref(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     return out
 
 
+#: shared words of every walk: 64 path metrics, its 8 groups' max and min,
+#: and their slots (16 bytes)
+ON_CHIP_WORDS = STACK_DEPTH + 16 + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """Where a stack walk keeps its slots, and the block it runs in."""
+    threads: int           #: threads per block, a multiple of 32
+    smem_bytes: int        #: dynamic shared memory per block
+    bits_shared: bool      #: path bits in shared memory (else device memory)
+    pack: bool             #: next-symbol index and encoder state in one word
+
+
+def node_words(pack: bool) -> int:
+    """Node words of one walk: 64 slots of one word (``pack``) or two."""
+    return STACK_DEPTH * (1 if pack else 2)
+
+
+def bit_words(T: int, K: int) -> int:
+    """Path-bit words of one walk: 64 slots of L = T - K + 1 info bits."""
+    return STACK_DEPTH * -(-(T - K + 1) // 32)
+
+
+def stack_plan(T: int, K: int) -> StackPlan:
+    """The launch plan of a walk over frames of ``T`` symbols of a code of
+    constraint length ``K``.
+
+    The next-symbol index (up to T) and the K-1-bit encoder state share a
+    word where K - 1 + bits(T) <= 32.  The metrics, the group winners and
+    the node words are in shared memory; the path bits go there too exactly
+    when 32 walks of them fit one block beside the rest.  The threads per
+    block are the multiple of 32 up to ``MAX_THREADS`` whose blocks let an
+    SM hold the most walks (ties go to the smaller block)."""
+    pack = (K - 1) + T.bit_length() <= 32
+    on_chip = ON_CHIP_WORDS + node_words(pack)
+    shared = 32 * 4 * (on_chip + bit_words(T, K)) <= SMEM_PER_BLOCK
+    per_slot = 4 * (on_chip + (bit_words(T, K) if shared else 0))
+    fits = [n for n in range(32, MAX_THREADS + 1, 32) if n * per_slot <= SMEM_PER_BLOCK]
+    threads = max(fits, key=lambda n: (resident_slots(n, per_slot), -n))
+    return StackPlan(threads, threads * per_slot, shared, pack)
+
+
+def code_plan(code: Code) -> StackPlan:
+    """:func:`stack_plan` of ``code``'s frames."""
+    return stack_plan(code.num_block_symbols, code.constraint_length)
+
+
+def walk_scratch(plan: StackPlan, code: Code, slots: int, device) -> torch.Tensor:
+    """Path bits of ``slots`` walks in device memory (one placeholder word
+    where the plan keeps them in shared memory)."""
+    words = bit_words(code.num_block_symbols, code.constraint_length)
+    return torch.empty(1 if plan.bits_shared else slots * words, dtype=torch.int32,
+                       device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = load_library("stack_mc")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.cc_stack_scratch_words.argtypes = [I, I]
-    lib.cc_stack_scratch_words.restype = ctypes.c_longlong
-    lib.cc_mc_stack.argtypes = [P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
-                                I, P]
+    lib.cc_stack_occupancy.argtypes = [I, I, I, I, I, P]
+    lib.cc_stack_occupancy.restype = I
+    lib.cc_mc_stack.argtypes = [P, P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
+                                I, I, I, I, I, I, P]
     lib.cc_mc_stack.restype = I
+    lib.cc_stack_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I, I,
+                                    I, I, I, P]
+    lib.cc_stack_decode.restype = I
     return lib
 
 
-def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
-            demapper: str, device) -> torch.Tensor:
-    lib = _lib()
-    T, M = code.num_block_symbols, code.points_per_symbol
-    soft = channel == "awgn"
-    syms = torch.empty((T, M, lanes) if soft else (T, lanes),
-                       dtype=torch.float32 if soft else torch.int32, device=device)
-    scratch = torch.empty(lib.cc_stack_scratch_words(T, lanes), dtype=torch.int32,
-                          device=device)
-    out = torch.empty((3, lanes), dtype=torch.int64, device=device)
-    points, polys, qmask, inv_nd = seq_params(code, channel, device)
-    with torch.cuda.device(device):
-        status = lib.cc_mc_stack(
-            out.data_ptr(), scratch.data_ptr(), syms.data_ptr(), lanes, fpl,
-            int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
-            code.constraint_length, code.block_length, T, code.symlen_out,
-            points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
-            float(code.metric_weight), int(code.bit_metrics[0]),
-            int(code.bit_metrics[1]), torch.cuda.current_stream().cuda_stream)
-    check_status(status, "stack_mc")
-    return out
+def plan_args(plan: StackPlan):
+    """The plan's arguments of a C entry: shared, pack, threads."""
+    return int(plan.bits_shared), int(plan.pack), plan.threads
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(mc: bool, plan: StackPlan, device_index: int) -> dict:
+    """What the card makes of ``plan`` for the Monte-Carlo kernel (``mc``)
+    or the decoder of supplied frames: resident blocks per SM, SMs,
+    registers and local (stack) bytes per thread."""
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        status = _lib().cc_stack_occupancy(int(mc), *plan_args(plan), plan.smem_bytes,
+                                           ctypes.addressof(info))
+    check_status(status, "stack occupancy")
+    if info[0] < 1:
+        raise RuntimeError(f"stack plan {plan} leaves no block resident on an SM")
+    return {"blocks_per_sm": info[0], "sms": info[1], "registers": info[2],
+            "local_bytes": info[3]}
+
+
+def grid_blocks(mc: bool, plan: StackPlan, frames: int, device: torch.device) -> int:
+    """Blocks of the persistent grid: every resident block, or fewer when
+    fewer frames than walks are queued."""
+    occ = occupancy(mc, plan, device.index if device.index is not None
+                    else torch.cuda.current_device())
+    return min(occ["sms"] * occ["blocks_per_sm"], -(-frames // plan.threads))
 
 
 def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
@@ -117,10 +191,29 @@ def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     if device.type != "cuda":
         raise ValueError(f"mc_stack runs on CPU or CUDA, got {device}")
     check_args(code, channel, demapper)
-    if lanes <= 0 or frames_per_lane <= 0:
-        raise ValueError(f"need lanes > 0 and frames_per_lane > 0, got "
-                         f"{lanes}, {frames_per_lane}")
-    out = _launch(code, lanes, frames_per_lane, seed, param, channel, demapper, device)
+    if lanes <= 0 or frames_per_lane <= 0 or lanes * frames_per_lane >= 2 ** 31:
+        raise ValueError(f"need lanes > 0, frames_per_lane > 0 and fewer than 2^31 "
+                         f"frames, got {lanes}, {frames_per_lane}")
+    T, M = code.num_block_symbols, code.points_per_symbol
+    soft = channel == "awgn"
+    plan = code_plan(code)
+    blocks = grid_blocks(True, plan, lanes * frames_per_lane, device)
+    slots = blocks * plan.threads
+    scratch = walk_scratch(plan, code, slots, device)
+    tables = torch.empty(slots * T * M, dtype=torch.float32, device=device)
+    out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
+    queue = torch.zeros(1, dtype=torch.int32, device=device)
+    points, polys, qmask, inv_nd = seq_params(code, channel, device)
+    with torch.cuda.device(device):
+        status = _lib().cc_mc_stack(
+            out.data_ptr(), queue.data_ptr(), scratch.data_ptr(), tables.data_ptr(), lanes,
+            frames_per_lane, int(seed) & 0x7FFFFFFF, float(param), int(soft),
+            int(demapper == "hard"), code.constraint_length, code.block_length, T,
+            code.symlen_out, points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
+            float(code.metric_weight), int(code.bit_metrics[0]),
+            int(code.bit_metrics[1]), *plan_args(plan), blocks, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+    check_status(status, "stack_mc")
     mc_stack.launches += 1
     return out
 
