@@ -37,6 +37,10 @@ Phases, each of which raises on failure:
      walks, a T past the shared layout whose path bits go to device memory,
      lanes not a multiple of a block, several frames a lane, 5 and 1000
      lanes) and on the compat-rewired k9-r12 and k15-r14-16qam, exact; the
+     Fano kernels on the same compat codes, exact; the stack and Fano
+     Monte-Carlo kernels with a lane offset (lane0 = 4096 at 4096 lanes)
+     against their plain versions with the same offset and against the
+     matching lanes of one launch of twice the lanes, exact; the
      streaming
      ACS and traceback wrappers against their plain versions (bit-exact, soft and
      tie-heavy hard, odd T, S = 4 .. 256, a two-segment traceback through the
@@ -56,8 +60,13 @@ Phases, each of which raises on failure:
      supplied K=7 frames through ``long_frame_decode_stream``; (e)
      supplied-frame stack/Fano: the modular chain's code-0 AWGN 8 dB stack
      and Fano steps at 131,072 frames, and one BSC point of each whose
-     counters must equal the plain machine's on the same frames.  Every
-     point with a published BER must pass the clustered z-check (|z| <
+     counters must equal the plain machine's on the same frames; (f) the
+     mesh: meshes whose slots repeat the card (``parallel/``), every leg
+     against its serial runs exactly (``seq_mc_grid`` for stack and Fano,
+     the fused kernel on a frames mesh and a sweep x frames grid, the
+     seq-sharded long-frame Monte-Carlo and decode, grid and frames-only
+     sweeps), and the mesh layer's cost on one card (``measure_scaling``).
+     Every point with a published BER must pass the clustered z-check (|z| <
      4.5), every BSC stack/Fano point must equal its committed record in
      results/ exactly, and the long-frame runs must beat their channels;
   5. throughput at the headline shape (code 0, 8 dB, 2^20 lanes, 16
@@ -107,6 +116,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -686,19 +696,29 @@ def check_sequential_kernels(torch, dev, stats):
 #: memory)
 FANO_EDGES = [(0, "bsc", 0.05, 20, 16384, 3), (None, "awgn", 4.0, 5, 256, 2),
               (None, "bsc", 0.03, 5, 256, 2)]
+#: the compat-rewired extension codes (bench.py's ``*_compat_vs_c`` rows),
+#: as STACK_COMPAT: (code, channel, point), 256 lanes x 2, timeout 50 per
+#: bit (the plain machine walks every timed-out frame to its budget)
+FANO_COMPAT = [("k9-r12", "awgn", 8.0), ("k9-r12", "bsc", 0.01),
+               ("k15-r14-16qam", "awgn", 14.0), ("k15-r14-16qam", "bsc", 0.005)]
 
 
 def check_fano_edges(torch, dev, stats):
-    """Kernels 8 and 10 against the plain machine at FANO_EDGES: more frames
-    than resident threads, and frames too long for shared memory (exact:
-    per-lane counters, and every output of every frame)."""
+    """Kernels 8 and 10 against the plain machine at FANO_EDGES (more frames
+    than resident threads, frames too long for shared memory) and on the
+    compat-rewired codes (FANO_COMPAT), exact: per-lane counters, and
+    every output of every frame."""
     from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.models.codebook import PARITY_COMPAT
     from convolutional_codes_tpu_torch.ops import fano, fano_cuda, fano_mc, mc_datagen, stack_mc
     from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 
-    for ck, channel, point, tpb, lanes, fpl in FANO_EDGES:
-        code = get_code(0).replace(name="k3-r12-long", block_length=600) if ck is None \
-            else get_code(ck)
+    cases = [(ck, get_code(0).replace(name="k3-r12-long", block_length=600) if ck is None
+              else get_code(ck), ch, pt, tpb, lanes, fpl)
+             for ck, ch, pt, tpb, lanes, fpl in FANO_EDGES]
+    cases += [("compat", get_code(ck).replace(name=f"{ck}-compat", parity=PARITY_COMPAT), ch,
+               pt, 50, 256, 2) for ck, ch, pt in FANO_COMPAT]
+    for ck, code, channel, point, tpb, lanes, fpl in cases:
         soft = channel == "awgn"
         param = float(awgn_sigma(point)) if soft else point
         T = code.num_block_symbols
@@ -727,7 +747,7 @@ def check_fano_edges(torch, dev, stats):
               f"{int(plain[1]['timed_out'].sum())}")
         require(diff == 0 and not bad, f"kernels 8/10 vs plain at {code.name} {channel}")
         require(ck is not None or not plan.nodes_shared, "long frames not in device memory")
-        require(ck is None or lanes * fpl > max(resident.values()),
+        require(ck in (None, "compat") or lanes * fpl > max(resident.values()),
                 "fewer frames than resident threads")
 
 
@@ -794,6 +814,54 @@ def check_stack_edges(torch, dev, stats):
             require(lanes * fpl > walks[True], "fewer frames than resident walks")
         require(code.block_length != 900 or not plan.bits_shared,
                 "long frames' path bits not in device memory")
+
+
+#: kernels 7 and 8 with a lane offset: (channel, point); code 0, lane0 =
+#: LANE0_LANES lanes into a point of twice as many, 2 frames a lane, Fano
+#: timeout 40 per bit
+LANE0_CASES = [("awgn", 4.0), ("bsc", 0.03)]
+LANE0_LANES = 4096
+
+
+def check_lane_offset(torch, dev, stats):
+    """Kernels 7 and 8 with ``lane0`` != 0: per lane against their plain
+    versions with the same lane0 (on the kernel's own frames: exact; on
+    BSC also on the plain datagen's frames, which are the kernel's), and
+    against the matching lane slice of one launch of twice the lanes."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops import fano_mc, mc_datagen, stack_mc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+
+    code, lanes, fpl, seed = get_code(0), LANE0_LANES, 2, 77
+    for decoder in ("stack", "fano"):
+        mc, ref = ((stack_mc.mc_stack, stack_mc.mc_stack_ref) if decoder == "stack"
+                   else (fano_mc.mc_fano, fano_mc.mc_fano_ref))
+        kw = {"timeout_per_bit": 40} if decoder == "fano" else {}
+        for channel, point in LANE0_CASES:
+            soft = channel == "awgn"
+            param = float(awgn_sigma(point)) if soft else point
+            k = mc(code, lanes, fpl, seed, param, channel, device=dev, lane0=lanes, **kw)
+            whole = mc(code, 2 * lanes, fpl, seed, param, channel, device=dev, **kw)
+            f = torch.arange(lanes * fpl, device=dev)
+            bits, syms = mc_datagen.frames_cuda(code, lanes * fpl + f, seed, param, channel)
+            plain = decode_plain(decoder, code, syms, soft, kw.get("timeout_per_bit", 0))
+            own = torch.zeros_like(k)
+            stack_mc.count_errors(own, f // fpl, plain[0], bits, plain[1]["iters"])
+            torch.cuda.synchronize()
+            diff = int((k != own).any(0).sum())
+            sliced = int((k != whole[:, lanes:]).any(0).sum())
+            stats["mc_" + decoder] = max(stats["mc_" + decoder], float((k - own).abs().max()))
+            if not soft:
+                require(torch.equal(ref(code, lanes, fpl, seed, param, channel, device=dev,
+                                        lane0=lanes, **kw), own),
+                        f"{decoder} lane0 BSC: the plain datagen's counters differ")
+            print(f"kernel {7 if decoder == 'stack' else 8} lane0={lanes}, {lanes} lanes x "
+                  f"{fpl}, code 0 {channel} {point:g}: {diff}/{lanes} lanes differ from the "
+                  f"plain machine on frames {lanes * fpl}..{2 * lanes * fpl - 1}, {sliced}/"
+                  f"{lanes} from lanes {lanes}.. of one {2 * lanes}-lane launch; bit errors "
+                  f"{int(k[0].sum())}")
+            require(diff == 0 and sliced == 0 and int(k[0].sum()) > 0,
+                    f"{decoder} lane0 {channel}: kernel differs")
 
 
 LONGFRAME_CASES = [  # tests/test_fused_longframe.py:41-51: (code, channel, point, demapper)
@@ -1041,8 +1109,9 @@ def run_sequential_path(torch, dev, tmp, decoder: str, scale: str, grid_idx):
     its committed counters exactly.  Returns the AWGN rows for the z-check."""
     from convolutional_codes_tpu_torch import get_code
     from convolutional_codes_tpu_torch.sim import cli
+    from convolutional_codes_tpu_torch.parallel.mesh import one_slot
     from convolutional_codes_tpu_torch.sim.sweep import (
-        BSC_CROSSOVER_GRID, PointRecord, SweepSpec, seq_plan, sequential_point, target_bits)
+        BSC_CROSSOVER_GRID, PointRecord, SweepSpec, seq_plan, sequential_points, target_bits)
     from convolutional_codes_tpu_torch.utils.records import read_jsonl
 
     path = os.path.join(tmp, f"awgn_{decoder}_0.jsonl")
@@ -1058,7 +1127,8 @@ def run_sequential_path(torch, dev, tmp, decoder: str, scale: str, grid_idx):
     for i in grid_idx:
         point = BSC_CROSSOVER_GRID[i]
         t0 = time.time()
-        be, fe, nb, wb, ww = sequential_point(spec, code, i, point, float(point), dev)
+        [(be, fe, nb, wb, ww)] = sequential_points(spec, code, [(i, point, float(point))],
+                                                   one_slot(dev))
         wall = time.time() - t0
         rec = recorded[i]
         lanes, fpl = seq_plan(target_bits(spec, point), code.block_length)
@@ -1181,6 +1251,133 @@ def run_supplied_path(torch, dev):
               f"frame_errors={fe}, plain machine on the same frames {want[0]} {want[1]}: "
               f"{'equal' if (be, fe) == want else 'DIFFERENT'}")
         require((be, fe) == want, f"bsc {decoder} chain step: kernel counters differ from plain")
+    return results
+
+
+#: the mesh path's sequential grid: 8192 global lanes, code 0, one frame a
+#: lane, two points (seeds SEQ_GRID_SEEDS) per channel
+SEQ_GRID = (("awgn", 4.0), ("bsc", 0.03))
+SEQ_GRID_SEEDS = (101, 102)
+#: the headline's per-device shape: 2^20 lanes, MESH_FUSED_STEPS in-kernel steps
+MESH_FUSED_STEPS = 4
+#: the mesh layer's cost: (frames a step, steps, repeats, rounds) a slot;
+#: the sweep's 4096 frames a step, a window of tens of ms at one slot
+MESH_SCALING = (4096, 32, 5, 7)
+
+
+def run_mesh_path(torch, dev):
+    """The mesh layer on slots that repeat the card: every leg's counters
+    against its serial runs, exactly (the sequential grid, the fused
+    kernel on a frames mesh and a sweep x frames grid, the time-range
+    sharded long-frame Monte-Carlo, the halo'd time-block decode against
+    the exact decode, grid sweeps against frames-only and mesh-less
+    sweeps), then the mesh layer's cost on one card.  Returns the sweeps'
+    rows for the z-check."""
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano
+    from convolutional_codes_tpu_torch.ops.fused_chain import mc_chain_viterbi
+    from convolutional_codes_tpu_torch.ops.fused_longframe import mc_longframe_viterbi
+    from convolutional_codes_tpu_torch.ops.stack_mc import mc_stack
+    from convolutional_codes_tpu_torch.parallel.distributed import measure_scaling
+    from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
+    from convolutional_codes_tpu_torch.parallel.montecarlo import (
+        device_seed, fused_grid_accumulate, fused_mc_accumulate)
+    from convolutional_codes_tpu_torch.parallel.seq_grid import seq_mc_grid
+    from convolutional_codes_tpu_torch.parallel.streaming import (
+        long_frame_decode_stream, streaming_mc_accumulate, streaming_viterbi_decode)
+    from convolutional_codes_tpu_torch.sim.sweep import SweepSpec, run_sweep
+
+    mesh = lambda shape: make_mesh(shape, devices=[dev] * math.prod(shape.values()))
+    grid, code = mesh({"sweep": 2, "frames": 2}), get_code(0)
+    t0 = time.time()
+    for decoder, mc in (("stack", mc_stack), ("fano", mc_fano)):
+        for channel, point in SEQ_GRID:
+            param = float(awgn_sigma(point)) if channel == "awgn" else point
+            be, fe, nb = seq_mc_grid(decoder, code, 8192, 1, SEQ_GRID_SEEDS, [param] * 2, grid,
+                                     channel=channel)
+            serial = [mc(code, 8192, 1, s, param, channel, device=dev)[:2].sum(1).tolist()
+                      for s in SEQ_GRID_SEEDS]
+            print(f"  seq_mc_grid {decoder} code 0 {channel} {point:g}, 8192 lanes x 2 points "
+                  f"on {grid.shape}: bit/frame errors {be.tolist()} {fe.tolist()}, serial "
+                  f"{serial}")
+            require([[int(b), int(f)] for b, f in zip(be, fe)] == serial and min(be) > 0,
+                    f"seq_mc_grid {decoder} {channel} differs from the serial runs")
+
+    sigma8, B = float(awgn_sigma(8.0)), 1 << 20
+    got = fused_mc_accumulate(code, MESH_FUSED_STEPS, 9, sigma8, B, mesh({"frames": 4}))
+    serial = [mc_chain_viterbi(code, B, MESH_FUSED_STEPS, device_seed(9, d), sigma8,
+                               device=dev) for d in range(4)]
+    want = (sum(int(b.sum(dtype=torch.int64)) for b, _ in serial),
+            sum(int(f.sum(dtype=torch.int64)) for _, f in serial),
+            4 * B * code.block_length * MESH_FUSED_STEPS)
+    print(f"  fused_mc_accumulate frames=4, {B} lanes x {MESH_FUSED_STEPS} steps a slot: {got}, "
+          f"four serial kernel-3 calls {want}")
+    require(got == want and got[0] > 0, "fused_mc_accumulate on the mesh differs")
+    seeds = [[11, 12], [13, 14]]
+    params = [float(awgn_sigma(6.0)), sigma8]
+    gb, gf, _ = fused_grid_accumulate(code, MESH_FUSED_STEPS, seeds, params, B, grid)
+    for r in range(2):
+        outs = [mc_chain_viterbi(code, B, MESH_FUSED_STEPS, s, params[r], device=dev)
+                for s in seeds[r]]
+        want = [sum(int(x[i].sum(dtype=torch.int64)) for x in outs) for i in (0, 1)]
+        require([int(gb[r]), int(gf[r])] == want, f"fused_grid_accumulate point {r} differs")
+    print(f"  fused_grid_accumulate {grid.shape}: bit errors {gb.tolist()} = 2 x 2 serial calls")
+
+    k7, (_, channel, point, lanes, _) = get_code("nasa-k7"), LONGFRAME_CONFIGS[1]
+    be, we, nb = streaming_mc_accumulate(k7, lanes, 4, 4323, float(awgn_sigma(point)), channel,
+                                         mesh=mesh({"seq": 4}))
+    rbe, rwe = mc_longframe_viterbi(k7, lanes, 4, 4323, float(awgn_sigma(point)), channel,
+                                    device=dev)
+    lanes_diff = int(((be != rbe.long().cpu()) | (we != rwe.long().cpu())).sum())
+    print(f"  streaming_mc_accumulate seq=4, config 2's shape ({lanes} lanes x 4 windows): "
+          f"{lanes_diff}/{lanes} lanes differ from one launch; bit errors {int(be.sum())}")
+    require(lanes_diff == 0 and nb == lanes * 4 * 1920, "streaming_mc_accumulate on the mesh")
+
+    gen = torch.Generator(device=dev).manual_seed(78)
+    _, d = awgn_frames(torch, k7, 128, 65536, 6.0, gen)
+    sharded = streaming_viterbi_decode(k7, d, mesh({"seq": 4}), warmup=128)
+    exact = long_frame_decode_stream(k7, d)
+    nbad = int((sharded != exact).sum())
+    print(f"  streaming_viterbi_decode seq=4, nasa-k7 [128, 65536] 6 dB, warmup 128: "
+          f"{nbad} bits differ from long_frame_decode_stream")
+    require(nbad == 0, "streaming_viterbi_decode differs from the exact decode")
+
+    results = []
+    spec = SweepSpec(code=0, channel="awgn", decoder="viterbi", points=(8.0, 10.0),
+                     frames_per_step=1 << 20, base_bits=8e7, seed=5)
+    recs = [run_sweep(spec, mesh=mesh(s), verbose=False)
+            for s in ({"sweep": 2, "frames": 2}, {"frames": 2})]
+    stack = SweepSpec(code=0, channel="awgn", decoder="stack", base_bits=8e6, seed=6)
+    recs += [run_sweep(stack, mesh=mesh({"frames": 4}), verbose=False),
+             run_sweep(stack, verbose=False, device=dev)]
+    for what, a, b in (("viterbi sweep x frames vs frames", recs[0], recs[1]),
+                       ("stack frames=4 vs no mesh", recs[2], recs[3])):
+        same = [(r.bits, r.bit_errors, r.frame_errors) for r in a] == \
+            [(r.bits, r.bit_errors, r.frame_errors) for r in b]
+        print(f"  run_sweep {what}: {len(a)} points, counters {'equal' if same else 'DIFFER'}")
+        require(same, f"run_sweep {what}")
+    results += [("awgn", r) for r in recs[0] + recs[2]]
+    print(f"  mesh legs: {time.time() - t0:.1f} s")
+
+    card = card_line()
+    counts, rounds = (1, 2, 4), []
+    for _ in range(MESH_SCALING[3]):   # interleaved: drift falls on every D alike
+        pts = measure_scaling(frames_per_device=MESH_SCALING[0], nsteps=MESH_SCALING[1],
+                              device_counts=list(counts), repeats=MESH_SCALING[2],
+                              devices=[dev] * max(counts))
+        rounds.append({p.devices: statistics.median(p.walls) for p in pts})
+    for d in counts:
+        walls = sorted(r[d] for r in rounds)
+        ratios = sorted(r[d] / (d * r[1]) for r in rounds)
+        q = statistics.quantiles(walls, n=4)
+        print(f"  mesh layer on one card [{card}]: {d} slots of {dev}, {MESH_SCALING[0]} frames "
+              f"x {MESH_SCALING[1]} steps a slot, {len(rounds)} rounds of {MESH_SCALING[2]} "
+              f"repeats: round medians min {walls[0] * 1e3:.3f} / quartiles {q[0] * 1e3:.3f} "
+              f"{q[1] * 1e3:.3f} {q[2] * 1e3:.3f} / max {walls[-1] * 1e3:.3f} ms; overhead "
+              f"wall(D) / (D * wall(1)) per round {[round(x, 4) for x in ratios]}, median "
+              f"{statistics.median(ratios):.4f} (slots share the card: this is the layer's "
+              f"cost, not scaling)")
     return results
 
 
@@ -2071,6 +2268,7 @@ def main() -> int:
         check_sequential_kernels(torch, dev, stats)
         check_fano_edges(torch, dev, stats)
         check_stack_edges(torch, dev, stats)
+        check_lane_offset(torch, dev, stats)
         check_longframe_kernels(torch, dev, stats)
         check_traceback_designs(torch, dev, stats)
         check_longframe_lanes(torch, dev, stats)
@@ -2095,6 +2293,11 @@ def main() -> int:
             lambda tmp: [check_points([("awgn", r)], gold, f"ber_coded_a_{d}")
                          for d, r in run_supplied_path(torch, dev)],
             ("mc_stack", "mc_fano")),
+        "mesh": (("mc_chain", "mc_stack", "mc_fano", "mc_longframe", "stream_acs",
+                  "stream_traceback"),
+                 lambda tmp: [check_points([row], gold, "ber_coded_a" if
+                                           row[1].decoder == "viterbi" else "ber_coded_a_stack")
+                              for row in run_mesh_path(torch, dev)], ()),
     }
     launches = {}
     for path, (kernels, drive, absent) in paths.items():
@@ -2107,7 +2310,7 @@ def main() -> int:
                 f"{k}={n}" for k, n in counts.items()))
             for k in kernels:
                 require(counts[k] > 0, f"kernel {k} was not launched on the {path} path")
-                launches[k] = counts[k]
+                launches[k] = launches.get(k, 0) + counts[k]
             for k in absent:
                 require(counts[k] == 0, f"kernel {k} was launched on the {path} path")
 

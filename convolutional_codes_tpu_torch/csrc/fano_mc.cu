@@ -3,7 +3,8 @@
 //
 // fano_mc_kernel replaces the TPU kernel convolutional_codes_tpu/ops/
 // fano_mc.py `_fano_mc_kernel` (:65, entry mc_fano :443).  Frame
-// gid = lane * fpl + k (k = 0 .. fpl-1) is generated in the thread
+// gid = (lane0 + lane) * fpl + k (k = 0 .. fpl-1; lane0 the launch's first
+// global lane, as the TPU kernel's, fano_mc.py:96-101) is generated in the thread
 // (sequential.cuh), decoded with the reference's serial Fano walk, and its
 // bit errors, frame error and walk iterations are added to the per-lane
 // counters [3][lanes] int64.  The sums are of integers, so they do not
@@ -228,7 +229,7 @@ __device__ __forceinline__ void fano_step(Walk& w, const Nodes& n, const Metrics
   }
 }
 
-// Frames f = 0 .. frames-1 from the queue (f = gid, lane = f / fpl),
+// Frames f = 0 .. frames-1 from the queue (gid = gid0 + f, lane = f / fpl),
 // generated by the crew into the slot's metric table.
 template <class Nodes>
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -257,7 +258,7 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
         const int deepest = __shfl_sync(c.alive, w.deepest, j);
         int err = 0;
         for (int t = c.rank; t < L; t += c.n)
-          err += node_bit(nj, t, deepest) != frame_bit(p.s, fj, t);
+          err += node_bit(nj, t, deepest) != frame_bit(p.s, p.gid0 + fj, t);
         err = __reduce_add_sync(c.alive, err);
         if (c.lane == j) {
           unsigned long long* row = (unsigned long long*)out + fj / (unsigned)p.fpl;
@@ -277,7 +278,7 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
         if (c.lane == j) break;
         continue;
       }
-      crew_gen(p, c, next, slot_table(tables, T, M, j));
+      crew_gen(p, c, p.gid0 + next, slot_table(tables, T, M, j));
       __syncwarp(c.alive);
       if (c.lane == j) fano_start(w, n, m, enc, p.timeout);
     }
@@ -397,21 +398,24 @@ int cc_fano_occupancy(int mc, int shared, int threads, int smem, int* info) {
   return 0;
 }
 
+// Frames of lanes lane0 .. lane0+lanes-1 of a point's frame-id space, banked
+// to out's lanes 0 .. lanes-1.
 // out [3, lanes] int64, zeroed; queue one uint32, zeroed; nodes: blocks *
 // threads * 4 * T uint32 words (unused when `shared`); tables: blocks *
 // threads * T * M float32.  timeout = timeout_per_bit * T SEARCH steps
 // per frame.  Host arrays: points [M, 2] float32, polys [symlen] uint32.
 // Returns the launch's cudaError_t.
 int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables, int lanes, int fpl,
-               unsigned seed, float param, int soft, int snap, int K, int L, int T, int symlen,
-               const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
+               int lane0, unsigned seed, float param, int soft, int snap, int K, int L, int T,
+               int symlen, const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
                float weight, int correct, int wrong, int timeout, int shared, int threads,
                int blocks, int smem, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, L, T, symlen, points,
                                   polys, qmask, inv_nd);
   if (bad) return bad;
-  if (lanes <= 0 || fpl <= 0 || (long long)lanes * fpl >= (1ll << 31) || timeout < 0 ||
+  if (lanes <= 0 || fpl <= 0 || lane0 < 0 || ((long long)lane0 + lanes) * fpl >= (1ll << 31) ||
+      timeout < 0 ||
       bad_geometry(threads, blocks, smem))
     return (int)cudaErrorInvalidValue;
   p.weight = weight;
@@ -420,6 +424,7 @@ int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables, 
   p.timeout = timeout;
   p.lanes = lanes;
   p.fpl = fpl;
+  p.gid0 = (unsigned)lane0 * (unsigned)fpl;
   const void* k = prepare<true>(shared, smem);
   if (!k) return (int)cudaErrorInvalidValue;
   const unsigned frames = (unsigned)lanes * (unsigned)fpl;

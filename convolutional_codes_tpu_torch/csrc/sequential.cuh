@@ -40,6 +40,7 @@ struct SeqDecoderParams {
   int correct, wrong;        // hard metric per coded bit
   int timeout;               // Fano: SEARCH steps per frame
   int lanes, fpl;
+  unsigned gid0;             // Monte-Carlo: global id of the launch's frame 0
 };
 
 // Returns 0, or cudaErrorInvalidValue for shapes the device code does not take.
@@ -87,6 +88,7 @@ static inline int fill_supplied_params(SeqDecoderParams* p, int soft, int K, int
   p->timeout = timeout;
   p->lanes = lanes;
   p->fpl = 1;
+  p->gid0 = 0u;
   return 0;
 }
 

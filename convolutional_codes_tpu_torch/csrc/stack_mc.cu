@@ -2,13 +2,16 @@
 // decoder of supplied frames, one walk shared by both.
 //
 // stack_mc_kernel replaces the TPU kernel convolutional_codes_tpu/ops/
-// stack_mc.py `_stack_mc_kernel` (:84, entry mc_stack :419).  Frame gid
-// (lane gid / fpl) is made by the crew of a warp (sequential.cuh) into the
-// walk's table of branch metrics, decoded with the reference's 64-path
-// stack search, and its bit errors, frame error and walk iterations are
-// added to the per-lane counters [3][lanes] int64 with integer atomics:
-// the sums depend on (seed, gid) only, never on the launch geometry nor on
-// the order in which frames end.
+// stack_mc.py `_stack_mc_kernel` (:84, entry mc_stack :419).  Frame f of a
+// launch (lane f / fpl) has the global id gid = gid0 + f, gid0 = lane0 * fpl,
+// so that devices sharing a point decode distinct blocks of one frame-id
+// space (the TPU kernel's lane0, stack_mc.py:114-117, :263).  It is made by
+// the crew of a warp (sequential.cuh) into the walk's table of branch
+// metrics, decoded with the reference's 64-path stack search, and its bit
+// errors, frame error and walk iterations are added to the per-lane
+// counters [3][lanes] int64 with integer atomics: the sums depend on (seed,
+// gid) only, never on the launch geometry nor on the order in which frames
+// end.
 //
 // stack_decode_kernel replaces the TPU kernel ops/stack_pallas.py
 // `_stack_kernel` (:86, entry stack_decode_pallas :338).  Each supplied
@@ -331,11 +334,11 @@ __device__ __forceinline__ int frame_errors(const SeqParams& p, const S& fs, int
   return err;
 }
 
-// Frame gid's bit errors, frame error and walk iterations onto its lane's
+// Frame f's bit errors, frame error and walk iterations onto its lane's
 // counters [3][lanes].
-__device__ __forceinline__ void bank(long long* out, const SeqDecoderParams& p, unsigned gid,
+__device__ __forceinline__ void bank(long long* out, const SeqDecoderParams& p, unsigned f,
                                      int err, long long iters) {
-  unsigned long long* row = (unsigned long long*)out + gid / (unsigned)p.fpl;
+  unsigned long long* row = (unsigned long long*)out + f / (unsigned)p.fpl;
   const size_t lanes = (size_t)p.lanes;
   if (err) {
     atomicAdd(row, (unsigned long long)err);
@@ -344,7 +347,7 @@ __device__ __forceinline__ void bank(long long* out, const SeqDecoderParams& p, 
   atomicAdd(row + 2 * lanes, (unsigned long long)iters);
 }
 
-// Frames f = 0 .. frames-1 from the queue (f = gid, lane = f / fpl), made
+// Frames f = 0 .. frames-1 from the queue (gid = gid0 + f, lane = f / fpl), made
 // by the crew into the slot's metric table.
 template <class Bits, bool kPack>
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -370,14 +373,15 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
     if (__popc(need) >= kSoloRefill) {   // a lane a frame
       bool leave = false;
       if (w.done) {
-        if (fr < frames) bank(out, p, fr, frame_errors(p.s, f, w.best, fr, 0, 1), w.iters);
+        if (fr < frames)
+          bank(out, p, fr, frame_errors(p.s, f, w.best, p.gid0 + fr, 0, 1), w.iters);
         take_next(queue, frames, &fr, &ahead);
         leave = fr >= frames;
         if (!leave) {
           Crew solo = c;
           solo.rank = 0;
           solo.n = 1;
-          crew_gen(p, solo, fr, slot_table(tables, T, M, c.lane));
+          crew_gen(p, solo, p.gid0 + fr, slot_table(tables, T, M, c.lane));
           stack_start(w, f, nw);
         }
       }
@@ -392,7 +396,8 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
       if (fj < frames) {   // bank lane j's finished frame
         const int win = __shfl_sync(c.alive, w.best, j);
         const int err = __reduce_add_sync(
-            c.alive, frame_errors(p.s, S::make(scratch, j, p.s.K, nw), win, fj, c.rank, c.n));
+            c.alive, frame_errors(p.s, S::make(scratch, j, p.s.K, nw), win, p.gid0 + fj,
+                                  c.rank, c.n));
         if (c.lane == j) bank(out, p, fj, err, w.iters);
       }
       if (c.lane == j) take_next(queue, frames, &fr, &ahead);
@@ -402,7 +407,7 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
         if (c.lane == j) break;
         continue;
       }
-      crew_gen(p, c, next, slot_table(tables, T, M, j));
+      crew_gen(p, c, p.gid0 + next, slot_table(tables, T, M, j));
       __syncwarp(c.alive);
       if (c.lane == j) stack_start(w, f, nw);
     }
@@ -539,21 +544,23 @@ int cc_stack_occupancy(int mc, int shared, int pack, int threads, int smem, int*
   return 0;
 }
 
+// Frames of lanes lane0 .. lane0+lanes-1 of a point's frame-id space, banked
+// to out's lanes 0 .. lanes-1.
 // out [3, lanes] int64, zeroed; queue one uint32, zeroed; scratch: the path
 // bits, blocks * threads * 64 * ceil(L / 32) uint32 words, where the plan
 // keeps them in device memory (unused when `shared`); tables: blocks *
 // threads * T * M float32.  Host arrays: points [M, 2] float32, polys
 // [symlen] uint32.  Returns the launch's cudaError_t.
 int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* tables, int lanes,
-                int fpl, unsigned seed, float param, int soft, int snap, int K, int L, int T,
-                int symlen, const float* points, const unsigned* polys, unsigned qmask,
-                float inv_nd, float weight, int correct, int wrong, int shared, int pack,
-                int threads, int blocks, int smem, cudaStream_t stream) {
+                int fpl, int lane0, unsigned seed, float param, int soft, int snap, int K,
+                int L, int T, int symlen, const float* points, const unsigned* polys,
+                unsigned qmask, float inv_nd, float weight, int correct, int wrong, int shared,
+                int pack, int threads, int blocks, int smem, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, L, T, symlen, points,
                                   polys, qmask, inv_nd);
   if (bad) return bad;
-  if (lanes <= 0 || fpl <= 0 || (long long)lanes * fpl >= (1ll << 31) ||
+  if (lanes <= 0 || fpl <= 0 || lane0 < 0 || ((long long)lane0 + lanes) * fpl >= (1ll << 31) ||
       bad_plan(K, L, T, shared, pack, threads, blocks, smem))
     return (int)cudaErrorInvalidValue;
   p.weight = weight;
@@ -562,6 +569,7 @@ int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* table
   p.timeout = 0;
   p.lanes = lanes;
   p.fpl = fpl;
+  p.gid0 = (unsigned)lane0 * (unsigned)fpl;
   const void* k = prepare<true>(shared, pack, smem);
   if (!k) return (int)cudaErrorInvalidValue;
   const unsigned frames = (unsigned)lanes * (unsigned)fpl;

@@ -2,7 +2,8 @@
 launch plan both Fano kernels of ``csrc/fano_mc.cu`` share.
 
 One launch of ``csrc/fano_mc.cu`` runs ``lanes * frames_per_lane``
-frames: frame ``gid = g * frames_per_lane + k`` belongs to lane ``g``; a
+frames: frame ``gid = (lane0 + g) * frames_per_lane + k`` belongs to lane
+``g`` (``lane0`` as in ``ops/stack_mc.py``); a
 persistent grid takes the frames from a queue, generates each in the
 thread from the coordinate hash (``ops/mc_datagen.py``), decodes it with
 the Fano walk and adds its errors to its lane's counters.  It replaces the
@@ -35,7 +36,7 @@ from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_machine
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
 from convolutional_codes_tpu_torch.ops.sequential_common import (  # noqa: F401 (the plan's limits)
     MAX_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, resident_slots)
-from convolutional_codes_tpu_torch.ops.stack_mc import count_errors
+from convolutional_codes_tpu_torch.ops.stack_mc import check_lanes, count_errors
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
 #: frames the plain machine decodes per pass
@@ -51,20 +52,23 @@ def _timeout(code: Code, timeout_per_bit: int) -> int:
 
 def mc_fano_ref(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
                 channel: str = "awgn", demapper: str = "soft",
-                timeout_per_bit: int = FANO_TIMEOUT, device="cpu") -> torch.Tensor:
+                timeout_per_bit: int = FANO_TIMEOUT, device="cpu", lane0: int = 0
+                ) -> torch.Tensor:
     """Plain version of :func:`mc_fano`: the same frames from
-    ``frames_host``, decoded by the plain lockstep machine in passes of
-    ``_REF_FRAMES`` frames; per-lane counters [3, lanes]."""
+    ``frames_host`` (global ids from ``lane0 * frames_per_lane``), decoded
+    by the plain lockstep machine in passes of ``_REF_FRAMES`` frames;
+    per-lane counters [3, lanes]."""
     check_args(code, channel, demapper)
+    check_lanes(lanes, frames_per_lane, lane0)
     _timeout(code, timeout_per_bit)
     device = torch.device(device)
-    N = lanes * frames_per_lane
+    N, gid0 = lanes * frames_per_lane, lane0 * frames_per_lane
     out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
-    for g0 in range(0, N, _REF_FRAMES):
-        gids = torch.arange(g0, min(N, g0 + _REF_FRAMES), device=device)
-        bits, syms = frames_host(code, gids, seed, param, channel, demapper, device)
+    for f0 in range(0, N, _REF_FRAMES):
+        f = torch.arange(f0, min(N, f0 + _REF_FRAMES), device=device)
+        bits, syms = frames_host(code, gid0 + f, seed, param, channel, demapper, device)
         dec, diag = fano_machine(code, syms, channel == "awgn", timeout_per_bit)
-        count_errors(out, gids // frames_per_lane, dec, bits, diag["iters"])
+        count_errors(out, f // frames_per_lane, dec, bits, diag["iters"])
     return out
 
 
@@ -104,8 +108,8 @@ def _lib():
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.cc_fano_occupancy.argtypes = [I, I, I, I, P]
     lib.cc_fano_occupancy.restype = I
-    lib.cc_mc_fano.argtypes = [P, P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
-                               I, I, I, I, I, I, P]
+    lib.cc_mc_fano.argtypes = [P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
+                               I, I, I, I, I, I, I, P]
     lib.cc_mc_fano.restype = I
     lib.cc_fano_decode.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I,
                                    I, I, I, I, P]
@@ -145,7 +149,8 @@ def node_scratch(plan: FanoPlan, T: int, slots: int, device) -> torch.Tensor:
 
 
 def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
-            demapper: str, timeout_per_bit: int, device, plan: FanoPlan = None) -> torch.Tensor:
+            demapper: str, timeout_per_bit: int, device, lane0: int = 0,
+            plan: FanoPlan = None) -> torch.Tensor:
     """The kernel's launch under ``fano_plan(T)``, or under ``plan`` where a
     measurement compares plans."""
     T, M = code.num_block_symbols, code.points_per_symbol
@@ -161,7 +166,7 @@ def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
     with torch.cuda.device(device):
         status = _lib().cc_mc_fano(
             out.data_ptr(), queue.data_ptr(), nodes.data_ptr(), tables.data_ptr(), lanes, fpl,
-            int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
+            int(lane0), int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
             code.constraint_length, code.block_length, T, code.symlen_out,
             points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
             float(code.fano_metric_weight), int(code.fano_bit_metrics[0]),
@@ -174,27 +179,27 @@ def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
 
 def mc_fano(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
             channel: str = "awgn", demapper: str = "soft",
-            timeout_per_bit: int = FANO_TIMEOUT, device="cuda") -> torch.Tensor:
+            timeout_per_bit: int = FANO_TIMEOUT, device="cuda", lane0: int = 0
+            ) -> torch.Tensor:
     """Run ``lanes * frames_per_lane`` Fano-decoded Monte-Carlo frames.
 
     ``channel``: "awgn" (param = sigma; ``demapper`` "soft" or "hard"
     snap-then-distance) or "bsc" (param = crossover probability);
     ``timeout_per_bit`` sets the budget of ``timeout_per_bit * T`` SEARCH
-    steps per frame.  The seed is taken ``& 0x7FFFFFFF``.  Returns per-lane
+    steps per frame.  The seed is taken ``& 0x7FFFFFFF``.  ``lane0`` is the
+    first lane's index in the point's global lane space.  Returns per-lane
     int64 counters [3, lanes]: bit errors, frame errors, walk iterations.
     """
     device = torch.device(device)
     if device.type == "cpu":
         return mc_fano_ref(code, lanes, frames_per_lane, seed, param, channel,
-                           demapper, timeout_per_bit, device)
+                           demapper, timeout_per_bit, device, lane0)
     if device.type != "cuda":
         raise ValueError(f"mc_fano runs on CPU or CUDA, got {device}")
     check_args(code, channel, demapper)
-    if lanes <= 0 or frames_per_lane <= 0 or lanes * frames_per_lane >= 2 ** 31:
-        raise ValueError(f"need lanes > 0, frames_per_lane > 0 and fewer than 2^31 "
-                         f"frames, got {lanes}, {frames_per_lane}")
+    check_lanes(lanes, frames_per_lane, lane0)
     return _launch(code, lanes, frames_per_lane, seed, param, channel, demapper,
-                   timeout_per_bit, device)
+                   timeout_per_bit, device, lane0)
 
 
 mc_fano.launches = 0

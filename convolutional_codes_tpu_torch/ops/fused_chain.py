@@ -261,3 +261,17 @@ def sincos_mismatches(n: int, seed: int, device="cuda") -> Tuple[int, int]:
     check_status(status, "sincos_mismatches")
     s, c = counts.tolist()
     return s, c
+
+
+def mc_awgn_viterbi(code: Code, batch: int, nsteps: int, seed, sigma,
+                    block_lanes: int = 1024, device="cuda"):
+    """:func:`mc_chain_viterbi` on the AWGN channel (soft decode)."""
+    return mc_chain_viterbi(code, batch, nsteps, seed, sigma, "awgn", block_lanes,
+                            device=device)
+
+
+def mc_bsc_viterbi(code: Code, batch: int, nsteps: int, seed, crossover,
+                   block_lanes: int = 1024, device="cuda"):
+    """:func:`mc_chain_viterbi` on the BSC (hard decode)."""
+    return mc_chain_viterbi(code, batch, nsteps, seed, crossover, "bsc", block_lanes,
+                            device=device)

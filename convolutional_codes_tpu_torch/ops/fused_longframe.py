@@ -220,9 +220,10 @@ def mc_longframe_viterbi(code: Code, lanes: int, nsteps: int, seed, param,
     info bits.
 
     ``win0`` is the first window's index in each lane's stream.  One-device
-    callers leave it at 0; it is the hook for sharding a run's windows
-    over devices by time range (ROADMAP Q1 item 14), where window ranges
-    that tile ``[0, n)`` sum to the ``n``-window counters exactly.
+    callers leave it at 0; ``parallel/streaming.streaming_mc_accumulate``
+    shards a run's windows over a mesh's slots by time range with it, where
+    window ranges that tile ``[0, n)`` sum to the ``n``-window counters
+    exactly.
     """
     device = torch.device(device)
     if device.type == "cpu":

@@ -2,7 +2,10 @@
 launch plan both stack kernels of ``csrc/stack_mc.cu`` share.
 
 One launch of ``csrc/stack_mc.cu`` runs ``lanes * frames_per_lane``
-frames: frame ``gid = g * frames_per_lane + k`` belongs to lane ``g``; a
+frames: frame ``gid = (lane0 + g) * frames_per_lane + k`` belongs to lane
+``g``, where ``lane0`` (0 on one device) is the launch's first lane in
+the point's global lane space, so that devices sharing a point decode
+distinct blocks of one frame-id space (``parallel/seq_grid.py``); a
 persistent grid takes the frames from a queue, makes each in the warp from
 the coordinate hash (``ops/mc_datagen.py``), decodes it with the 64-path
 stack search and adds its errors to its lane's counters.  It replaces the
@@ -55,22 +58,33 @@ def count_errors(out: torch.Tensor, lane: torch.Tensor, dec: torch.Tensor,
     out[2].index_add_(0, lane, iters)
 
 
+def check_lanes(lanes: int, frames_per_lane: int, lane0: int) -> None:
+    """A launch's frame ids ``(lane0 + lanes) * frames_per_lane`` must stay
+    below 2^31, as the JAX package's int32 ids do."""
+    if lanes <= 0 or frames_per_lane <= 0 or lane0 < 0 or \
+            (lane0 + lanes) * frames_per_lane >= 2 ** 31:
+        raise ValueError(f"need lanes > 0, frames_per_lane > 0, lane0 >= 0 and frame ids "
+                         f"below 2^31, got {lanes}, {frames_per_lane}, {lane0}")
+
+
 def mc_stack_ref(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
-                 channel: str = "awgn", demapper: str = "soft", device="cpu"
-                 ) -> torch.Tensor:
+                 channel: str = "awgn", demapper: str = "soft", device="cpu",
+                 lane0: int = 0) -> torch.Tensor:
     """Plain version of :func:`mc_stack`: the same frames from
-    ``frames_host``, decoded by the plain lockstep machine in passes of up
-    to ``_REF_BITS_BYTES`` of path bits; per-lane counters [3, lanes]."""
+    ``frames_host`` (global ids from ``lane0 * frames_per_lane``), decoded
+    by the plain lockstep machine in passes of up to ``_REF_BITS_BYTES`` of
+    path bits; per-lane counters [3, lanes]."""
     check_args(code, channel, demapper)
+    check_lanes(lanes, frames_per_lane, lane0)
     device = torch.device(device)
-    N = lanes * frames_per_lane
+    N, gid0 = lanes * frames_per_lane, lane0 * frames_per_lane
     per_pass = max(1, _REF_BITS_BYTES // (STACK_DEPTH * code.num_block_symbols))
     out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
-    for g0 in range(0, N, per_pass):
-        gids = torch.arange(g0, min(N, g0 + per_pass), device=device)
-        bits, syms = frames_host(code, gids, seed, param, channel, demapper, device)
+    for f0 in range(0, N, per_pass):
+        f = torch.arange(f0, min(N, f0 + per_pass), device=device)
+        bits, syms = frames_host(code, gid0 + f, seed, param, channel, demapper, device)
         dec, _, iters = stack_machine(code, syms, channel == "awgn")
-        count_errors(out, gids // frames_per_lane, dec, bits, iters)
+        count_errors(out, f // frames_per_lane, dec, bits, iters)
     return out
 
 
@@ -136,8 +150,8 @@ def _lib():
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.cc_stack_occupancy.argtypes = [I, I, I, I, I, P]
     lib.cc_stack_occupancy.restype = I
-    lib.cc_mc_stack.argtypes = [P, P, P, P, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F, I,
-                                I, I, I, I, I, I, P]
+    lib.cc_mc_stack.argtypes = [P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
+                                I, I, I, I, I, I, I, P]
     lib.cc_mc_stack.restype = I
     lib.cc_stack_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I, I,
                                     I, I, I, P]
@@ -175,25 +189,25 @@ def grid_blocks(mc: bool, plan: StackPlan, frames: int, device: torch.device) ->
 
 
 def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
-             channel: str = "awgn", demapper: str = "soft", device="cuda"
-             ) -> torch.Tensor:
+             channel: str = "awgn", demapper: str = "soft", device="cuda",
+             lane0: int = 0) -> torch.Tensor:
     """Run ``lanes * frames_per_lane`` stack-decoded Monte-Carlo frames.
 
     ``channel``: "awgn" (param = sigma; ``demapper`` "soft" or "hard"
     snap-then-distance) or "bsc" (param = crossover probability).  The seed
-    is taken ``& 0x7FFFFFFF``.  Returns per-lane int64 counters [3, lanes]:
-    bit errors, frame errors, walk iterations.
+    is taken ``& 0x7FFFFFFF``.  ``lane0`` is the first lane's index in the
+    point's global lane space (frames from ``lane0 * frames_per_lane`` on).
+    Returns per-lane int64 counters [3, lanes]: bit errors, frame errors,
+    walk iterations.
     """
     device = torch.device(device)
     if device.type == "cpu":
         return mc_stack_ref(code, lanes, frames_per_lane, seed, param, channel,
-                            demapper, device)
+                            demapper, device, lane0)
     if device.type != "cuda":
         raise ValueError(f"mc_stack runs on CPU or CUDA, got {device}")
     check_args(code, channel, demapper)
-    if lanes <= 0 or frames_per_lane <= 0 or lanes * frames_per_lane >= 2 ** 31:
-        raise ValueError(f"need lanes > 0, frames_per_lane > 0 and fewer than 2^31 "
-                         f"frames, got {lanes}, {frames_per_lane}")
+    check_lanes(lanes, frames_per_lane, lane0)
     T, M = code.num_block_symbols, code.points_per_symbol
     soft = channel == "awgn"
     plan = code_plan(code)
@@ -207,7 +221,7 @@ def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     with torch.cuda.device(device):
         status = _lib().cc_mc_stack(
             out.data_ptr(), queue.data_ptr(), scratch.data_ptr(), tables.data_ptr(), lanes,
-            frames_per_lane, int(seed) & 0x7FFFFFFF, float(param), int(soft),
+            frames_per_lane, int(lane0), int(seed) & 0x7FFFFFFF, float(param), int(soft),
             int(demapper == "hard"), code.constraint_length, code.block_length, T,
             code.symlen_out, points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
             float(code.metric_weight), int(code.bit_metrics[0]),

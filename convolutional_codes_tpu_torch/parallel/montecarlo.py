@@ -1,35 +1,143 @@
-"""Monte-Carlo accumulation on one device.
+"""Monte-Carlo accumulation on one device or across a mesh.
 
 The reference runs one block at a time and sums error counters in C
 variables (``AWGN-channel/main.c:212-233``).  Here a point's counters
 accumulate over steps of a chain step function (the modular chain) or
-inside one fused-kernel launch.  Meshes — several devices along a
-``frames`` axis — are not ported yet (ROADMAP Q1 item 14).
+inside one fused-kernel launch, on one device or on every slot of a
+``frames`` mesh axis (``parallel/mesh.py``), and over the ``sweep`` axis
+with one channel parameter per group of slots.
+
+On a mesh, one process launches every slot it owns and moves on, so slots
+on distinct cards overlap; the counters stay on each slot's device until
+one host reduction in int64 (the JAX package's ``psum``), summed over
+processes with ``all_reduce`` where the mesh spans several.  Slot ``d`` of
+the frames axis draws from the seed ``(seed * 1315423911 + d) &
+0x7FFFFFFF`` (the JAX package's fused path, montecarlo.py:238-240), for
+the fused kernel and for the modular chain's generators alike, so a
+sweep×frames grid gives the counters of the frames-only runs exactly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from convolutional_codes_tpu_torch.ops.fused_chain import (
     MAX_POINTS, MAX_STATES, MAX_SYMBOLS, mc_chain_viterbi)
+from convolutional_codes_tpu_torch.parallel.mesh import Mesh
 
 #: (generator, param) -> (bit_errors, frame_errors, bits) — see sim.chain.
 StepFn = Callable
 
 
-def sharded_accumulate(step: StepFn, nsteps: int, generator: torch.Generator,
-                       param) -> Tuple[int, int, int]:
-    """Run ``nsteps`` steps of ``step`` at one sweep point, drawing from
-    ``generator``; returns summed (bit_errors, frame_errors, bits) ints."""
+def device_seed(seed: int, d: int) -> int:
+    """The seed of slot ``d`` of a frames axis (reference montecarlo.py:238-240)."""
+    return (int(seed) * 1315423911 + d) & 0x7FFFFFFF
+
+
+def per_device(build: Callable[[torch.device], StepFn], mesh: Mesh
+               ) -> Callable[[torch.device], StepFn]:
+    """A ``device -> step`` map for :func:`frames_accumulate` and
+    :func:`grid_accumulate_with_keys` that calls ``build(device)`` once
+    for each distinct device of this process's slots, here, and hands the
+    same step to every slot on that device afterwards."""
+    steps: Dict[torch.device, StepFn] = {}
+    for dev, rank in mesh.slots():
+        if rank == mesh.rank and dev not in steps:
+            steps[dev] = build(dev)
+    return steps.__getitem__
+
+
+def _my_slots(seeds, mesh: Mesh, axes) -> list:
+    """(device, seed, point index) of this process's slots of a grid over
+    ``axes`` (points over ``sweep``, frames over ``frames``; or ``frames``
+    alone, one point), ``seeds`` [points, frames] matching the mesh."""
+    seeds = np.asarray(seeds, dtype=np.int64)
+    R, F = seeds.shape
+    if [mesh.shape[a] for a in axes] != ([R, F] if len(axes) == 2 else [F]):
+        raise ValueError(f"seeds {seeds.shape} do not match the mesh's {dict(mesh.shape)}")
+    return [(dev, int(seeds.flat[k]) & 0x7FFFFFFF, k // F)
+            for k, (dev, rank) in enumerate(mesh.slots(axes)) if rank == mesh.rank]
+
+
+def _accumulate_slots(step: Callable[[torch.device], StepFn], nsteps: int,
+                      slot_seeds: Sequence[Tuple[torch.device, int, int]], params
+                      ) -> torch.Tensor:
+    """Run ``nsteps`` steps on each slot (device, seed, point index) with
+    ``params[point]``; returns this process's int64 counters [3, points]."""
+    steps = {dev: step(dev) for dev, _, _ in slot_seeds}
+    gens = [torch.Generator(device=dev).manual_seed(s) for dev, s, _ in slot_seeds]
+    acc = [[0, 0, 0] for _ in slot_seeds]
+    for _ in range(nsteps):   # slot-minor: launches on distinct cards overlap
+        for k, (dev, _, r) in enumerate(slot_seeds):
+            out = steps[dev](gens[k], params[r])
+            acc[k] = [a + o for a, o in zip(acc[k], out)]
+    counts = torch.zeros((3, len(params)), dtype=torch.int64)
+    for (_, _, r), a in zip(slot_seeds, acc):   # the host reduction
+        counts[:, r] += torch.tensor([int(x) for x in a], dtype=torch.int64)
+    return counts
+
+
+def sharded_accumulate(step: StepFn, nsteps: int, generator: torch.Generator, param
+                       ) -> Tuple[int, int, int]:
+    """Run ``nsteps`` steps at one sweep point on one device, drawing from
+    ``generator``; returns summed (bit_errors, frame_errors, bits) ints.
+    Across a mesh: :func:`frames_accumulate`."""
     be = fe = nb = 0
     for _ in range(nsteps):   # counters stay on the device until the end
         sbe, sfe, snb = step(generator, param)
         be, fe, nb = be + sbe, fe + sfe, nb + snb
     return int(be), int(fe), int(nb)
 
+
+def frames_accumulate(step: Callable[[torch.device], StepFn], nsteps: int, seed: int,
+                      param, mesh: Mesh) -> Tuple[int, int, int]:
+    """:func:`sharded_accumulate` over the mesh's ``frames`` axis (the JAX
+    package's ``sharded_accumulate(..., mesh)``): every slot of the axis
+    runs ``nsteps`` steps of ``step(device)`` from its :func:`device_seed`,
+    so the bits scale with the axis size.  ``step`` maps a device to the
+    step bound to it (the chain's steps are built for one device;
+    :func:`per_device` builds one per distinct device, once)."""
+    seeds = [[device_seed(seed, d) for d in range(mesh.shape["frames"])]]
+    be, fe, nb = grid_accumulate_with_keys(step, nsteps, seeds, [param], mesh,
+                                           axes=("frames",))
+    return int(be[0]), int(fe[0]), int(nb[0])
+
+
+def grid_accumulate_with_keys(step, nsteps: int, seeds, params, mesh: Mesh,
+                              axes=("sweep", "frames")
+                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Points over the ``sweep`` axis, frames over ``frames``: slot (r, d)
+    runs ``nsteps`` steps of ``step(device)`` (see
+    :func:`frames_accumulate`) with ``params[r]``, from a generator seeded
+    with ``seeds[r][d]``.  ``run_sweep`` passes the seeds its serial leg
+    derives for each point, so the grid and serial sweeps give identical
+    counters.  Returns per-point int64 (bit_errors, frame_errors, bits)
+    arrays [R]."""
+    counts = mesh.sum_over_processes(
+        _accumulate_slots(step, nsteps, _my_slots(seeds, mesh, axes), list(params)))
+    return counts[0].numpy(), counts[1].numpy(), counts[2].numpy()
+
+
+def sweep_grid_accumulate(step, nsteps: int, seed: int, params, mesh: Mesh
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """2-D sharding: ``params`` [R] over the ``sweep`` axis (R its size),
+    frames over ``frames``; slot (r, d) draws from ``device_seed(seed,
+    r * frames + d)``.  Returns per-point (bit_errors, frame_errors, bits)
+    arrays [R]."""
+    if "sweep" not in mesh.axis_names or "frames" not in mesh.axis_names:
+        raise ValueError(f"sweep_grid_accumulate needs sweep and frames axes, "
+                         f"got {mesh.axis_names}")
+    R, F = len(params), mesh.shape["frames"]
+    seeds = [[device_seed(seed, r * F + d) for d in range(F)] for r in range(R)]
+    return grid_accumulate_with_keys(step, nsteps, seeds, params, mesh)
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel: AWGN + soft Viterbi or BSC + hard Viterbi in one launch
+# ---------------------------------------------------------------------------
 
 def fused_mc_eligible(code, channel: str, decoder: str, demapper: str) -> bool:
     """The fused Monte-Carlo kernel covers the flagship configs — AWGN +
@@ -41,15 +149,48 @@ def fused_mc_eligible(code, channel: str, decoder: str, demapper: str) -> bool:
             and code.num_block_symbols <= MAX_SYMBOLS)
 
 
+def _fused_counts(code, nsteps: int, slots, params, batch: int, channel: str,
+                  demapper: str) -> torch.Tensor:
+    """Kernel 3 on each slot (device, seed, point index); this process's
+    int64 counters [3, points] after one host reduction."""
+    outs = []
+    for dev, seed, r in slots:   # launches only: distinct cards overlap
+        be, fe = mc_chain_viterbi(code, batch, nsteps, seed, params[r], channel,
+                                  block_lanes=min(1024, batch), demapper=demapper,
+                                  device=dev)
+        outs.append((r, be.sum(dtype=torch.int64), fe.sum(dtype=torch.int64)))
+    counts = torch.zeros((3, len(params)), dtype=torch.int64)
+    for r, be, fe in outs:
+        counts[:, r] += torch.tensor([int(be), int(fe), batch * code.block_length * nsteps])
+    return counts
+
+
 def fused_mc_accumulate(code, nsteps: int, seed: int, param, batch: int,
-                        channel: str = "awgn", demapper: str = "soft",
-                        device="cuda") -> Tuple[int, int, int]:
+                        mesh: Mesh = None, channel: str = "awgn",
+                        demapper: str = "soft", device="cuda") -> Tuple[int, int, int]:
     """Fused-kernel counterpart of :func:`sharded_accumulate` for the
     Viterbi chains: ``nsteps`` in-kernel steps of ``batch`` lanes (hash RNG
-    tile ``min(1024, batch)``, as the reference), seeded with
-    ``seed & 0x7FFFFFFF``.  Returns (bit_errors, frame_errors, bits)."""
-    be, fe = mc_chain_viterbi(code, batch, nsteps, seed & 0x7FFFFFFF, param,
-                              channel, block_lanes=min(1024, batch),
-                              demapper=demapper, device=device)
-    return (int(be.sum(dtype=torch.int64)), int(fe.sum(dtype=torch.int64)),
-            batch * code.block_length * nsteps)
+    tile ``min(1024, batch)``, as the reference).  Without a ``frames``
+    axis: one launch on ``device`` seeded with ``seed & 0x7FFFFFFF``; with
+    one: a launch on every slot of the axis from its :func:`device_seed`.
+    Returns (bit_errors, frame_errors, bits)."""
+    if mesh is None or "frames" not in mesh.axis_names:
+        slots = [(torch.device(device), int(seed) & 0x7FFFFFFF, 0)]
+        return tuple(int(x) for x in _fused_counts(code, nsteps, slots, [param], batch,
+                                                    channel, demapper)[:, 0])
+    be, fe, nb = fused_grid_accumulate(
+        code, nsteps, [[device_seed(seed, d) for d in range(mesh.shape["frames"])]],
+        [param], batch, mesh, channel, demapper, axes=("frames",))
+    return int(be[0]), int(fe[0]), int(nb[0])
+
+
+def fused_grid_accumulate(code, nsteps: int, seeds_2d, params, batch: int,
+                          mesh: Mesh, channel: str = "awgn", demapper: str = "soft",
+                          axes=("sweep", "frames")):
+    """Fused-kernel sweep×frames accumulation: ``seeds_2d`` [R, frames]
+    per-(point, slot) seeds with R the sweep axis size, ``params`` [R].
+    Counter-identical to R :func:`fused_mc_accumulate` calls with those
+    seeds.  Returns int64 (bit_errors, frame_errors, bits) arrays [R]."""
+    counts = mesh.sum_over_processes(_fused_counts(
+        code, nsteps, _my_slots(seeds_2d, mesh, axes), list(params), batch, channel, demapper))
+    return counts[0].numpy(), counts[1].numpy(), counts[2].numpy()

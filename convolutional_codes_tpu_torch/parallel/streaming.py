@@ -1,5 +1,6 @@
-"""Long-frame Viterbi on one device: the exact decode of supplied frames of
-any length, and the long-frame Monte-Carlo accumulation.
+"""Long-frame Viterbi: the exact decode of supplied frames of any length,
+the time-range sharded decode over a ``seq`` mesh axis, and the long-frame
+Monte-Carlo accumulation on one device or a mesh.
 
 The reference's decoders are data-driven: they consume supplied distance
 vectors through ``decoder_input`` (``AWGN-channel/include/decoder.h:17-26``)
@@ -7,12 +8,30 @@ in blocks of at most ~200 bits.  :func:`long_frame_decode_stream` decodes
 frames of any length exactly — the same bits as the monolithic decode,
 :func:`monolithic_reference_decode` — through the streaming kernels of
 :mod:`ops.longframe_cuda` on a CUDA tensor, or their plain versions on a
-CPU tensor.  :func:`streaming_mc_accumulate` is the Monte-Carlo side: one
-fused long-frame kernel call (``ops/fused_longframe.py``).
+CPU tensor.
 
-The JAX package also shards these over a ``seq`` mesh axis (halo
-exchange, time-range sharding); meshes are not ported yet (ROADMAP Q1
-item 14).
+:func:`streaming_viterbi_decode` partitions the symbol stream into time
+blocks across a ``seq`` mesh axis — the overlap-save scheme of parallel
+block-based Viterbi decoding (the JAX package's ``parallel/streaming.py``):
+
+  * each slot receives its block plus a ``warmup``-symbol halo on both
+    sides from its neighbours (``.to()`` between the slots' devices),
+  * the left halo warms the path metrics up from a uniform start, so by
+    the block's first real symbol they have converged to the monolithic
+    decoder's metrics (up to a constant),
+  * the right halo extends the trellis so the traceback has converged back
+    onto the survivor path by the time it re-enters the block,
+  * the first block instead starts exactly pinned to state 0 (its left
+    halo's branch metrics force the all-zero warm-up path), and the last
+    block starts its traceback at the true frame end.
+
+With ``warmup`` of ten constraint lengths or more the result equals the
+monolithic decode with overwhelming probability; boundary effects decay
+exponentially in the warm-up length.
+
+:func:`streaming_mc_accumulate` is the Monte-Carlo side: one fused
+long-frame kernel call (``ops/fused_longframe.py``), or one per slot of a
+mesh, each on its own time range of the same hash-addressed streams.
 """
 
 from __future__ import annotations
@@ -23,6 +42,7 @@ import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fused_longframe import mc_longframe_viterbi
+from convolutional_codes_tpu_torch.parallel.mesh import Mesh, make_mesh
 from convolutional_codes_tpu_torch.ops.longframe_cuda import (
     stream_acs_cuda, stream_traceback_cuda)
 from convolutional_codes_tpu_torch.ops.viterbi import (
@@ -59,16 +79,130 @@ def monolithic_reference_decode(code: Code, dists) -> torch.Tensor:
     return traceback_from(code, decisions, first_argmin(final_metrics, dim=-1))
 
 
+#: Large-but-finite soft metric for "impossible" warm-up branches: a finite
+#: value keeps every state's metric ordered while it dominates any real path
+#: cost (the JAX package's ``_PIN``).
+_PIN = 1e9
+
+
+def _pin_first_block_halo(dists_halo: torch.Tensor) -> torch.Tensor:
+    """Branch metrics that force the all-zero path: distance 0 for symbol 0,
+    ``_PIN`` otherwise.  After K-1 such steps the metric vector equals the
+    state-0-pinned start metrics up to paths costing ``_PIN`` or more."""
+    out = torch.full_like(dists_halo, _PIN)
+    out[..., 0] = 0.0
+    return out
+
+
+def streaming_viterbi_decode(code: Code, dists, mesh: Mesh, warmup: int = 128,
+                             seq_axis: str = "seq") -> torch.Tensor:
+    """Decode long soft-demapped frames sharded over time blocks.
+
+    ``dists``: ``[B, T, M]`` distance streams, T divisible by the size D of
+    ``mesh``'s ``seq_axis`` and ``warmup`` at most T / D.  Slot ``i`` of
+    the axis (every other axis at index 0) decodes symbols ``[i * T/D,
+    (i+1) * T/D)`` on its device with the streaming kernels 4 and 5
+    (``stream_acs_cuda``/``stream_traceback_cuda``; their plain versions on
+    a CPU slot), as the JAX package's "pallas" backend does: a forward pass
+    over ``[left halo | block]`` from uniform metrics, a second over the
+    right halo, the right halo's traceback from its least end metric, whose
+    carry state starts the block's traceback; the last slot instead starts
+    at its block's end.  Returns ``[B, T]`` int32 decoded bits (the K-1
+    tail bits included) on ``dists``'s device.
+    """
+    if mesh.world > 1:
+        raise NotImplementedError("streaming_viterbi_decode across processes: the halo "
+                                  "exchange between processes is not ported yet "
+                                  "(ROADMAP Q1 item 19)")
+    d_all = torch.as_tensor(dists).to(torch.float32)
+    D = mesh.shape[seq_axis]
+    B, T, M = d_all.shape
+    if T % D:
+        raise ValueError(f"frame length {T} not divisible by seq axis {D}")
+    Tl, W = T // D, warmup
+    if not 0 < W <= Tl:
+        raise ValueError(f"warmup {W} must be in [1, {Tl}] (the block length)")
+    devs = [dev for dev, _ in mesh.slots((seq_axis,))]
+    blocks = [d_all[:, i * Tl:(i + 1) * Tl].to(dev) for i, dev in enumerate(devs)]
+    outs = []
+    for i, (dev, local) in enumerate(zip(devs, blocks)):
+        last = i == D - 1
+        # the halo exchange: the neighbours' edges move to this slot's device
+        left = (_pin_first_block_halo(local[:, :W]) if i == 0
+                else blocks[i - 1][:, Tl - W:].to(dev))
+        parts = [left, local] + ([] if last else [blocks[i + 1][:, :W].to(dev)])
+        d_tmb = torch.cat(parts, dim=1).permute(1, 2, 0).contiguous()
+        init = torch.zeros((code.num_states, B), dtype=torch.float32, device=dev)
+        mid_m, dec_a = stream_acs_cuda(code, d_tmb[:W + Tl], init, False)
+        if last:
+            start = first_argmin(mid_m, dim=0).to(torch.int32)
+        else:
+            end_m, dec_b = stream_acs_cuda(code, d_tmb[W + Tl:], mid_m, False)
+            _, start = stream_traceback_cuda(code, dec_b,
+                                             first_argmin(end_m, dim=0).to(torch.int32))
+        bits_tb, _ = stream_traceback_cuda(code, dec_a, start)
+        outs.append(bits_tb[W:])                  # [Tl, B]
+    return torch.cat([o.to(d_all.device) for o in outs], dim=0).T.contiguous()
+
+
 def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,
                             channel: str = "awgn", demapper: str = "soft",
-                            window: int = 1920, warmup: int = 128, mesh=None,
+                            window: int = 1920, warmup: int = 128, mesh: Mesh = None,
                             device="cuda") -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Long-frame Monte-Carlo: ``lanes`` coded streams, ``windows`` windows
-    each, in one :func:`mc_longframe_viterbi` call from window 0, seeded
-    with ``seed & 0x7FFFFFFF``.  Returns (bit_errors [lanes], window_errors
-    [lanes], simulated info bits ``lanes * windows * window``)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported yet (ROADMAP Q1 item 14)")
-    be, we = mc_longframe_viterbi(code, lanes, windows, int(seed) & 0x7FFFFFFF, param,
-                                  channel, demapper, window, warmup, 0, device)
-    return be, we, lanes * windows * window
+    each, seeded with ``seed & 0x7FFFFFFF``.  Returns (bit_errors [lanes],
+    window_errors [lanes], simulated info bits ``lanes * windows *
+    window``).
+
+    Without a mesh: one :func:`mc_longframe_viterbi` call on ``device``
+    from window 0, whose int32 counters it returns.  With a mesh of D
+    slots: each slot (in axis order) decodes a distinct TIME RANGE of the
+    same streams, ``windows / D`` windows from ``win0 = slot * windows /
+    D``.  The kernel's windows are independent overlap-save decodes of
+    hash-addressed stream positions, so a slot regenerates its halos
+    itself, no state moves between slots, and the summed counters equal
+    the one-device run's exactly; they come back as int64 CPU tensors.
+    """
+    if mesh is None:
+        be, we = mc_longframe_viterbi(code, lanes, windows, int(seed) & 0x7FFFFFFF, param,
+                                      channel, demapper, window, warmup, 0, device)
+        return be, we, lanes * windows * window
+    ndev = mesh.size
+    if windows % ndev:
+        raise ValueError(f"{windows} windows not divisible by {ndev} devices")
+    wpd = windows // ndev
+    outs = [mc_longframe_viterbi(code, lanes, wpd, int(seed) & 0x7FFFFFFF, param, channel,
+                                 demapper, window, warmup, k * wpd, dev)
+            for k, (dev, rank) in enumerate(mesh.slots()) if rank == mesh.rank]
+    counts = torch.zeros((2, lanes), dtype=torch.int64)
+    for be, we in outs:   # the host reduction
+        counts += torch.stack([be, we]).cpu()
+    counts = mesh.sum_over_processes(counts)
+    return counts[0], counts[1], lanes * windows * window
+
+
+def dryrun_streaming(n_devices: int, devices=None) -> None:
+    """Tiny end-to-end streaming run over an ``n_devices``-slot ``seq``
+    mesh of ``devices`` (default: every visible card): a noiseless decode
+    that must return the sent bits, and the sharded Monte-Carlo leg."""
+    from convolutional_codes_tpu_torch.models.codebook import get_code
+    from convolutional_codes_tpu_torch.ops.encoder import encode_stream
+
+    code = get_code("nasa-k7")
+    mesh = make_mesh({"seq": n_devices}, devices=devices)
+    dev = mesh.slots()[0][0]
+    W = 16
+    L = n_devices * 64 - (code.constraint_length - 1)
+    gen = torch.Generator().manual_seed(0)
+    bits = torch.randint(0, 2, (2, L), generator=gen, dtype=torch.int32)
+    syms = encode_stream(code, bits, terminate=True).to(torch.int64)
+    M = code.points_per_symbol
+    dists = 1.0 - torch.nn.functional.one_hot(syms, M).to(torch.float32)  # 0 at the sent symbol
+    out = streaming_viterbi_decode(code, dists.to(dev), mesh, warmup=W)
+    if not torch.equal(out[:, :L].cpu(), bits):
+        raise RuntimeError("streaming dry run: the noiseless decode lost bits")
+
+    be, we, nb = streaming_mc_accumulate(code, 8, n_devices, 3, 0.35, window=64, warmup=32,
+                                         mesh=mesh)
+    if nb != 8 * n_devices * 64 or be.shape != (8,):
+        raise RuntimeError(f"streaming dry run: {nb} bits, counters {tuple(be.shape)}")

@@ -12,16 +12,22 @@ error, and ``--cpu`` selects the CPU explicitly.  ``--bits-scale`` shrinks
 the reference-sized tiers (8e8-bit base) for quick runs.  Stack and Fano
 points size their lanes from the tiers (``sim/sweep.seq_plan``), not from
 ``--frames``; ``--timeout-per-bit`` sets the Fano budget.
+
+``--mesh`` takes the reference's syntax (``frames=8``, ``sweep=2,frames=4``):
+the slots are the visible cards, and a shape that does not match them
+raises; with ``--cpu`` the CPU fills as many slots as the shape asks.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import get_code
+from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
 from convolutional_codes_tpu_torch.sim.sweep import SweepSpec, run_sweep
 from convolutional_codes_tpu_torch.utils import records as rec
 
@@ -57,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--cpu", action="store_true",
                         help="run on the CPU (default: the CUDA device)")
         sp.add_argument("--mesh", type=str, default=None,
-                        help="mesh shape (not ported yet)")
+                        help="mesh shape, e.g. 'frames=8' or 'sweep=2,frames=4'")
         sp.add_argument("--jsonl", type=str, default=None)
         sp.add_argument("--octave", type=str, default=None)
         sp.add_argument("--checkpoint", type=str, default=None,
@@ -67,12 +73,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def parse_mesh(arg, device: str = "cuda"):
+    """``"sweep=2,frames=4"`` -> a mesh over the visible cards, or over as
+    many CPU slots as the shape asks (``device="cpu"``, sizes given)."""
+    if not arg:
+        return None
+    shape = {}
+    for part in arg.split(","):
+        k, v = part.split("=")
+        shape[k.strip()] = int(v)
+    if device == "cpu":
+        if any(v < 1 for v in shape.values()):
+            raise ValueError(f"--cpu --mesh needs every axis size, got {arg!r}")
+        return make_mesh(shape, devices=[torch.device("cpu")] * math.prod(shape.values()))
+    return make_mesh(shape)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: meshes are not ported yet "
-                                  "(ROADMAP Q1 item 14)")
     if args.trace:
         raise NotImplementedError("--trace: profiler traces are not ported yet "
                                   "(ROADMAP Q1 item 15)")
@@ -96,7 +115,10 @@ def main(argv=None) -> int:
           f"rate 1/{code.symlen_out} block={code.block_length} "
           f"polys={[oct(p) for p in code.polynomials]} parity={code.parity} "
           f"device={device}")
-    results = run_sweep(spec, checkpoint_path=args.checkpoint, device=device)
+    mesh = parse_mesh(args.mesh, device)
+    if mesh is not None:
+        print(f"mesh {mesh.shape} on {mesh.size} {device} slots")
+    results = run_sweep(spec, mesh=mesh, checkpoint_path=args.checkpoint, device=device)
     if args.jsonl:
         rec.write_jsonl(results, args.jsonl)
     if args.octave:

@@ -3,7 +3,8 @@
 Mirrors the reference drivers' sweeps (SNR grid and sample tiers,
 ``AWGN-channel/main.c:150-211``; crossover grid and tiers,
 ``binary-symmetric-channel/main.c:103-156``) as a resumable runner that
-produces one record per point, on one device.
+produces one record per point, on one device or across a mesh
+(``parallel/mesh.py``).
 
 Legs (as in the reference package's ``sim/sweep.py``):
   * fused: every config :func:`fused_mc_eligible` accepts runs in the fused
@@ -12,12 +13,18 @@ Legs (as in the reference package's ``sim/sweep.py``):
     the same counters as the reference's ``interpret=True`` kernel;
   * sequential: every stack/Fano point runs the sequential Monte-Carlo
     kernels (``ops/stack_mc.py``, ``ops/fano_mc.py``; their plain versions
-    on the CPU) with the reference's frame addressing (:func:`seq_plan`,
-    :func:`sequential_point`), so BSC counters equal the reference's TPU
+    on the CPU) through ``parallel/seq_grid.py``, on one slot without a
+    mesh, with the reference's frame addressing (:func:`seq_plan`,
+    :func:`sequential_points`), so BSC counters equal the reference's TPU
     records; the reference's VMEM gates on T*M do not apply here;
   * modular: other Viterbi configs run the step chain of ``sim/chain.py``;
   * uncoded: the nearest-point baseline.
-Meshes and traces are not ported yet and raise.
+On a mesh: points of equal step counts run side by side over the ``sweep``
+axis, each summed over ``frames`` (the sweep×frames grid); stack/Fano
+points run their lanes over every slot (``parallel/seq_grid.py``); the
+rest run one at a time over the ``frames`` axis.  Every leg derives its
+seeds as the serial leg does, so the grid legs give the serial legs'
+counters exactly.  Traces are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -28,15 +35,17 @@ import json
 import time
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code, get_code
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
-from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano
-from convolutional_codes_tpu_torch.ops.stack_mc import mc_stack
+from convolutional_codes_tpu_torch.parallel.mesh import frames_axis_size, one_slot
 from convolutional_codes_tpu_torch.parallel.montecarlo import (
-    fused_mc_accumulate, fused_mc_eligible, sharded_accumulate)
+    device_seed, frames_accumulate, fused_grid_accumulate, fused_mc_accumulate,
+    fused_mc_eligible, grid_accumulate_with_keys, per_device, sharded_accumulate)
+from convolutional_codes_tpu_torch.parallel.seq_grid import seq_mc_grid
 from convolutional_codes_tpu_torch.sim.chain import make_point_step, make_uncoded_step
 
 #: Default Eb/N0 grid in dB (AWGN-channel/main.c:150-152).
@@ -176,34 +185,34 @@ def seq_plan(target: int, frame_bits: int) -> Tuple[int, int]:
     return lanes, max(1, -(-target // (lanes * frame_bits)))
 
 
-def sequential_point(spec: SweepSpec, code: Code, point_idx: int, point: float,
-                     param: float, device) -> Tuple[int, int, int, int, float]:
-    """One stack/Fano point of the sweep: a cold slice of one frame per lane
-    with the point seed, then a warm slice of ``fpl - 1`` frames per lane
-    with the seed xored by :data:`WARM_SEED_XOR` (reference
-    sim/sweep.py:558-585).  Frame ``k`` of lane ``g`` is ``gid = g * fpl +
-    k`` within each slice.  Returns (bit_errors, frame_errors, bits,
-    warm_bits, warm_wall_s)."""
-    lanes, fpl = seq_plan(target_bits(spec, point), code.block_length)
-    seed = _chunk_seed(spec.seed, point_idx, 0)
-    kw = dict(channel=spec.channel, demapper=spec.demapper, device=device)
+def sequential_points(spec: SweepSpec, code: Code, batch, mesh
+                      ) -> List[Tuple[int, int, int, int, float]]:
+    """R = ``len(batch)`` stack/Fano points ``(index, point, param)`` of
+    one :func:`seq_plan` side by side over ``mesh`` (``seq_mc_grid``; a
+    one-slot mesh runs them one launch each): a cold slice of one frame per
+    lane with the point seeds, then a warm slice of ``fpl - 1`` frames per
+    lane with the seeds xored by :data:`WARM_SEED_XOR` (reference
+    sim/sweep.py:558-585).  Frame ``k`` of global lane ``g`` is ``gid = g *
+    fpl + k`` within each slice.  Returns per point (bit_errors,
+    frame_errors, bits, warm_bits, warm_wall_s), the warm wall amortised
+    over the points."""
+    lanes, fpl = seq_plan(target_bits(spec, batch[0][1]), code.block_length)
+    kw = dict(channel=spec.channel, demapper=spec.demapper)
     if spec.decoder == "fano":
-        mc = mc_fano
         kw["timeout_per_bit"] = spec.timeout_per_bit
-    else:
-        mc = mc_stack
-    slices = [(1, seed)] + ([(fpl - 1, seed ^ WARM_SEED_XOR)] if fpl > 1 else [])
-    be = fe = nb = warm_bits = 0
-    warm_wall = 0.0
-    for k, (n, s) in enumerate(slices):
+    prms = [param for _, _, param in batch]
+    seeds = [_chunk_seed(spec.seed, i, 0) for i, _, _ in batch]
+    # the counters come back to the host: the device is done
+    be, fe, nb = seq_mc_grid(spec.decoder, code, lanes, 1, seeds, prms, mesh, **kw)
+    warm_bits, warm_wall = np.zeros_like(nb), 0.0
+    if fpl > 1:                      # the cold slice pays the warm-up
         t0 = time.time()
-        out = mc(code, lanes, n, s, param, **kw)
-        be += int(out[0].sum())      # host ints: the device is done
-        fe += int(out[1].sum())
-        nb += lanes * n * code.block_length
-        if k:                        # the cold slice pays the warm-up
-            warm_bits, warm_wall = lanes * n * code.block_length, time.time() - t0
-    return be, fe, nb, warm_bits, warm_wall
+        b2, f2, warm_bits = seq_mc_grid(spec.decoder, code, lanes, fpl - 1,
+                                        [s ^ WARM_SEED_XOR for s in seeds], prms, mesh, **kw)
+        warm_wall = (time.time() - t0) / len(batch)
+        be, fe, nb = be + b2, fe + f2, nb + warm_bits
+    return [(int(be[r]), int(fe[r]), int(nb[r]), int(warm_bits[r]), warm_wall)
+            for r in range(len(batch))]
 
 
 def _load_checkpoint(path: str, spec_fp: str) -> dict:
@@ -222,26 +231,27 @@ def _load_checkpoint(path: str, spec_fp: str) -> dict:
 
 def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
               verbose: bool = True, device="cuda") -> List[PointRecord]:
-    """Run the sweep on ``device``, resumable via a JSON checkpoint of
-    per-point counters ((seed, counters) is the complete state)."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported yet (ROADMAP Q1 item 14)")
+    """Run the sweep on ``device`` or across ``mesh``, resumable via a JSON
+    checkpoint of per-point counters ((seed, counters) is the complete
+    state).  With a mesh, a chunk simulates ``frames`` axis size times the
+    bits, and the pieces that run on one device run on the mesh's first
+    slot."""
     if spec.trace_dir:
         raise NotImplementedError("profiler traces are not ported yet "
                                   "(ROADMAP Q1 item 15)")
     code = spec.resolve_code()
     points = spec.resolve_points()
-    device = torch.device(device)
+    device = torch.device(mesh.slots()[0][0] if mesh is not None else device)
+    frames_mesh = mesh if mesh is not None and "frames" in mesh.axis_names else None
+    ndev = frames_axis_size(mesh)
     uncoded = spec.channel == "uncoded"
     frames = spec.frames_per_step
 
     sequential = not uncoded and spec.decoder in ("stack", "fano")
+    frame_bits = code.symlen_out if uncoded else code.block_length
     if uncoded:
-        step = make_uncoded_step(code.symlen_out, frames, device)
-        frame_bits = code.symlen_out
         to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=code.symlen_out))
     else:
-        frame_bits = code.block_length
         to_param = (lambda p: float(awgn_sigma(p))) if spec.channel == "awgn" else float
 
     spec_fp = _spec_fingerprint(spec, code)
@@ -249,16 +259,17 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
 
     use_fused = (not uncoded and fused_mc_eligible(
         code, spec.channel, spec.decoder, spec.demapper))
-    if use_fused:
-        eff_frames = max(1024, -(-frames // 1024) * 1024)
-    else:
-        eff_frames = frames
-        if not uncoded and not sequential:
-            step = make_point_step(code, spec.channel, spec.decoder, spec.demapper,
-                                   frames, device=device)
-    bits_per_call = eff_frames * frame_bits
+    eff_frames = max(1024, -(-frames // 1024) * 1024) if use_fused else frames
+    step = None
+    if uncoded or not (sequential or use_fused):
+        # the chain's steps are built for one device: one per distinct slot device
+        build = ((lambda dev: make_uncoded_step(code.symlen_out, frames, dev)) if uncoded
+                 else (lambda dev: make_point_step(code, spec.channel, spec.decoder,
+                                                   spec.demapper, frames, device=dev)))
+        step = per_device(build, frames_mesh) if frames_mesh else build(device)
+    bits_per_call = eff_frames * frame_bits * ndev
     # chunk the accumulation so int32 per-lane counters cannot overflow
-    chunk = max(1, (1 << 30) // max(1, bits_per_call))
+    chunk = max(1, (1 << 30) // max(1, eff_frames * frame_bits))
 
     records_by_idx = {}
 
@@ -286,31 +297,99 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
             with open(checkpoint_path, "w") as f:
                 json.dump(payload, f)
 
+    # plan: (index, point, param, nsteps) for every point not checkpointed
+    pending = []
     for i, point in enumerate(points):
         if point in done_points:
             records_by_idx[i] = PointRecord(**done_points[point])
             continue
-        param = to_param(point)
-        t0 = tc = time.time()
-        if sequential:
-            be, fe, nb, wb, ww = sequential_point(spec, code, i, point, param, device)
-            finish_point(i, point, param, be, fe, nb, time.time() - t0, wb, ww)
-            continue
-        nsteps = max(1, -(-target_bits(spec, point) // bits_per_call))
-        be = fe = nb = wb = 0
-        ww = 0.0
+        pending.append((i, point, to_param(point),
+                        max(1, -(-target_bits(spec, point) // bits_per_call))))
+
+    def chunks(nsteps):
+        """(chunk index, steps) of a point: a point that fits one chunk runs
+        a small cold chunk first, so that it still records a warm rate
+        (reference sweep.py:601).  The partition feeds the seeds, so every
+        leg takes it from here."""
         left, ci = nsteps, 0
         while left > 0:
             n = min(chunk, left)
-            # a point that fits one chunk runs a small cold chunk first, so
-            # that it still records a warm rate (reference sweep.py:601)
             if ci == 0 and n == nsteps and n > 1:
                 n = max(1, n // 8)
+            yield ci, n
+            left -= n
+            ci += 1
+
+    # ---- the sweep×frames grid: equal step counts side by side over `sweep`
+    if (mesh is not None and not sequential and "sweep" in mesh.axis_names
+            and frames_mesh is not None):
+        Ds = mesh.shape["sweep"]
+        by_steps = {}
+        for item in pending:
+            by_steps.setdefault(item[3], []).append(item)
+        pending = []
+        for nsteps, group in by_steps.items():
+            while len(group) >= Ds:
+                batch, group = group[:Ds], group[Ds:]
+                prms = [it[2] for it in batch]
+                tot = np.zeros((3, Ds), np.int64)
+                warm = np.zeros(Ds, np.int64)
+                t0 = tc = time.time()
+                ww = 0.0
+                for ci, n in chunks(nsteps):
+                    seeds = [[device_seed(_chunk_seed(spec.seed, it[0], ci), d)
+                              for d in range(ndev)] for it in batch]
+                    if use_fused:
+                        out = fused_grid_accumulate(code, n, seeds, prms, eff_frames, mesh,
+                                                    spec.channel, spec.demapper)
+                    else:
+                        out = grid_accumulate_with_keys(step, n, seeds, prms, mesh)
+                    tot += np.stack(out)
+                    if ci > 0:                      # chunk 0 pays the warm-up
+                        warm += out[2]
+                        ww += time.time() - tc
+                    tc = time.time()
+                wall = (time.time() - t0) / Ds       # side by side: amortised
+                for r, (i, point, param, _) in enumerate(batch):
+                    finish_point(i, point, param, int(tot[0, r]), int(tot[1, r]),
+                                 int(tot[2, r]), wall, int(warm[r]), ww / Ds)
+            pending.extend(group)
+        pending.sort()
+
+    # ---- stack/Fano: points of one plan side by side over the mesh's slots
+    if sequential:
+        one = one_slot(device)
+        grid = mesh if mesh is not None else one
+        by_plan = {}
+        for item in pending:
+            by_plan.setdefault(seq_plan(target_bits(spec, item[1]), frame_bits),
+                               []).append(item)
+        pending = []
+        for (lanes, _), group in sorted(by_plan.items()):
+            while group:
+                R = next((d for d in range(min(len(group), grid.size), 0, -1)
+                          if grid.size % d == 0 and lanes % (grid.size // d) == 0), 0)
+                # no grouping of the slots divides the lanes: the first slot alone
+                batch, group = group[:max(R, 1)], group[max(R, 1):]
+                t0 = time.time()
+                outs = sequential_points(spec, code, [it[:3] for it in batch],
+                                         grid if R else one)
+                wall = (time.time() - t0) / len(batch)   # side by side: amortised
+                for (i, point, param, _), (be, fe, nb, wb, ww) in zip(batch, outs):
+                    finish_point(i, point, param, be, fe, nb, wall, wb, ww)
+
+    for i, point, param, nsteps in pending:
+        t0 = tc = time.time()
+        be = fe = nb = wb = 0
+        ww = 0.0
+        for ci, n in chunks(nsteps):
             seed_c = _chunk_seed(spec.seed, i, ci)
             if use_fused:
                 cbe, cfe, cnb = fused_mc_accumulate(
-                    code, n, seed_c, param, eff_frames, channel=spec.channel,
+                    code, n, seed_c, param, eff_frames, frames_mesh, channel=spec.channel,
                     demapper=spec.demapper, device=device)
+            elif frames_mesh is not None:
+                cbe, cfe, cnb = frames_accumulate(step, n, seed_c, param, frames_mesh)
             else:
                 gen = torch.Generator(device=device).manual_seed(seed_c)
                 cbe, cfe, cnb = sharded_accumulate(step, n, gen, param)
@@ -320,8 +399,6 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
             if ci > 0:                          # chunk 0 pays the warm-up
                 wb += cnb
                 ww += time.time() - tc
-            left -= n
-            ci += 1
             tc = time.time()
         finish_point(i, point, param, be, fe, nb, time.time() - t0, wb, ww)
 

@@ -51,3 +51,26 @@ def test_importing_every_port_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+#: names of the JAX package's API that the port leaves out (ROADMAP "Do not port")
+DO_NOT_PORT = {"long_frame_decode_pallas", "long_frame_decode_hostseg"}
+
+
+def _reference_all(sub):
+    """``__all__`` of the JAX package's ``sub/__init__.py``, read without
+    importing it."""
+    tree = ast.parse((REPO / "convolutional_codes_tpu" / sub / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {sub}")
+
+
+def test_package_exports_the_reference_names():
+    import importlib
+
+    for sub, extra in (("ops", {"mc_awgn_viterbi", "mc_bsc_viterbi"}), ("parallel", set())):
+        mod = importlib.import_module(f"convolutional_codes_tpu_torch.{sub}")
+        assert set(mod.__all__) == (_reference_all(sub) - DO_NOT_PORT) | extra, sub
+        assert all(callable(getattr(mod, name)) for name in mod.__all__), sub

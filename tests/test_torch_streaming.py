@@ -1,7 +1,8 @@
 """PyTorch port, long-frame entry points (``parallel/streaming.py``): the
 one-device Monte-Carlo accumulation, the refusals, the kernel wrappers'
-routing, and one ``cuda``-marked test that holds kernels 4-6 against their
-plain versions on a card (it skips where there is none).
+routing, the mesh (more in test_torch_mesh_streaming.py), and one
+``cuda``-marked test that holds kernels 4-6 against their plain versions
+on a card (it skips where there is none).
 """
 
 import numpy as np
@@ -14,6 +15,7 @@ from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 from convolutional_codes_tpu_torch.ops.viterbi import BIG_METRIC
 from convolutional_codes_tpu_torch.parallel import streaming as st
+from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
 from convolutional_codes_tpu_torch.utils.bitops import first_argmin
 
 torch.set_num_threads(2)
@@ -31,9 +33,16 @@ def test_streaming_mc_accumulate_is_one_kernel_call():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        st.streaming_mc_accumulate(get_code("k3-75"), 8, 1, 0, 0.03, "bsc", mesh=object(),
-                                   device="cpu")
+    """The mesh runs (``parallel/mesh.py``): two CPU slots, each on its own
+    window range, give the one-device run's per-lane counters."""
+    code = get_code("k3-75")
+    mesh = make_mesh({"seq": 2}, devices=[torch.device("cpu")] * 2)
+    be, we, bits = st.streaming_mc_accumulate(code, 8, 2, 0, 0.03, "bsc", window=128,
+                                              warmup=64, mesh=mesh)
+    rbe, rwe, rbits = st.streaming_mc_accumulate(code, 8, 2, 0, 0.03, "bsc", window=128,
+                                                 warmup=64, device="cpu")
+    assert bits == rbits == 8 * 2 * 128
+    assert torch.equal(be, rbe.long()) and torch.equal(we, rwe.long()) and int(be.sum()) > 0
 
 
 def test_default_device_raises_without_a_card():

@@ -103,8 +103,9 @@ def test_uncoded_sweep_closed_form():
 
 
 def test_unported_legs_raise():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_sweep(SweepSpec(points=[4.0]), mesh=object(), verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        run_sweep(SweepSpec(points=[4.0], trace_dir="/nonexistent"), verbose=False,
+                  device="cpu")
     for decoder in ("stack", "fano"):     # supplied-symbol decode on the card: kernels 9-10
         assert callable(make_point_step(get_code(0), "awgn", decoder, device="cuda"))
 
@@ -198,7 +199,7 @@ def test_cli_without_gpu_exits_nonzero(tmp_path):
 
 
 def test_cli_unported_flags_raise():
-    with pytest.raises(NotImplementedError):
-        cli.main(["awgn", "--cpu", "--mesh", "frames=2"])
+    with pytest.raises(ValueError, match="every axis size"):
+        cli.main(["awgn", "--cpu", "--mesh", "frames=-1"])
     with pytest.raises(NotImplementedError):
         cli.main(["awgn", "--cpu", "--trace", "/nonexistent"])
