@@ -50,7 +50,13 @@ Phases, each of which raises on failure:
      most 1% of lanes different), also at 1021 lanes and on a 128-state
      code (thread groups of 4); the traceback kernels on both designs (one walk per frame,
      segments) at the segment edges, B = 1 and the plan's crossover, in
-     both modes, bit-exact;
+     both modes, bit-exact; kernel 3 with ``fast_demap`` (the linear
+     demapper) against its plain version at 2^16 lanes, soft and snap, on
+     codes 0 and 5; and random user codes (RANDOM_CODE_PLAN: K 3-9,
+     symlen 2-4, both parity modes, and a big-K code) through every kernel
+     whose limits admit them, against the C oracle (``utils/native.py``,
+     built with gcc; its stack decode in a child process) or the plain
+     versions, the codes printed;
   4. the main paths, each with every launch counter reset before and read
      after: (a) the CLI's code-0 AWGN and BSC Viterbi sweeps (fused kernel)
      and the modular chain (ACS + traceback kernels); (b) the CLI's code-0
@@ -65,14 +71,20 @@ Phases, each of which raises on failure:
      against its serial runs exactly (``seq_mc_grid`` for stack and Fano,
      the fused kernel on a frames mesh and a sweep x frames grid, the
      seq-sharded long-frame Monte-Carlo and decode, grid and frames-only
-     sweeps), and the mesh layer's cost on one card (``measure_scaling``).
+     sweeps), the time-block decode on two processes with one slot of the
+     card each over gloo (the halo exchange across processes), and the
+     mesh layer's cost on one card (``measure_scaling``).  After the
+     paths, outside their counters, one point of the Viterbi path runs
+     without and with ``--trace``: the Chrome trace must name
+     ``mc_chain_kernel`` among its CUDA kernels.
      Every point with a published BER must pass the clustered z-check (|z| <
      4.5), every BSC stack/Fano point must equal its committed record in
      results/ exactly, and the long-frame runs must beat their channels;
   5. throughput at the headline shape (code 0, 8 dB, 2^20 lanes, 16
-     in-kernel steps), the sequential kernels at full width (8192 lanes,
-     timeout 10000 per bit), the long-frame kernels at configs 0 and 2 and
-     at the real-data decode shapes, the decoders of supplied frames at
+     in-kernel steps; the exact demapper and ``fast_demap``), the
+     sequential kernels at full width (8192 lanes, timeout 10000 per
+     bit), the long-frame kernels at configs 0 and 2 and at the
+     real-data decode shapes, the decoders of supplied frames at
      the supplied-frame path's shape and two more, and each kernel's time
      beside its plain version's and its bound.  The long-frame kernels are held
      against the plain versions that are timed there, at the main path's
@@ -94,10 +106,11 @@ Phases, each of which raises on failure:
      alone, which is what B = 128 runs on each SM) and its SASS
      instructions a step.
 
-``--kernel-times DIR [REF]`` times kernels 1, 3, 4 and 6-10 at phase 5's
-shapes (kernel 4 also soft and hard at S = 64, and at every S from 4 to
-256; kernel 7 at phase 5's four stack rows with fewer frames a lane;
-kernel 9 at B = 131,072 on code 0 and k9-r12), each of kernels 1, 4 and 9
+``--kernel-times DIR [REF]`` times kernels 1, 3 (and its ``fast_demap``,
+where the package under DIR has it), 4 and 6-10 at phase 5's shapes
+(kernel 4 also soft and hard at S = 64, and at every S from 4 to 256;
+kernel 7 at phase 5's four stack rows with fewer frames a lane; kernel 9
+at B = 131,072 on code 0 and k9-r12), each of kernels 1, 4 and 9
 held against its plain version, with the package under DIR (e.g. a ``git
 archive`` of an older commit unpacked in ``.scratch/``), to compare
 designs across commits in one call.  Kernels 7, 8 and 10's outputs are
@@ -113,6 +126,7 @@ prints no result.
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -287,8 +301,9 @@ def resident_warps(regs: int, threads: int) -> int:
 
 
 def print_ptxas_longframe(logs: dict) -> None:
-    """The ``-Xptxas -v`` report of ``fused_chain.cu`` (kernel 3, an
-    instance per channel mode), ``longframe.cu`` (kernels 1, 2, 4, 5:
+    """The ``-Xptxas -v`` report of ``fused_chain.cu`` and
+    ``fused_chain_lin.cu`` (kernel 3, an instance per channel mode; the
+    second fast_demap's), ``longframe.cu`` (kernels 1, 2, 4, 5:
     stream ACS, traceback walk, segment maps and fold) and of
     ``longframe_mc.cu`` (kernel 6, one thread or a group of G threads a
     lane): registers, stack frame, spills, and for kernels 3 and 6 the
@@ -298,7 +313,7 @@ def print_ptxas_longframe(logs: dict) -> None:
     2).  Kernel 3's stack frame is its decision and info-bit arrays."""
     import re
     spills = []
-    for lib in ("fused_chain", "longframe", "longframe_mc"):
+    for lib in ("fused_chain", "fused_chain_lin", "longframe", "longframe_mc"):
         log = logs.get(lib, "")
         require(log, f"no -Xptxas -v report of {lib}.cu")
         instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
@@ -413,20 +428,23 @@ def read_sass(build) -> dict:
     every row (sass_always); kernel 4's instructions a trellis step
     (nasa-k7: S = 64, M = 4, its unrolled soft step loop)."""
     out = {}
-    _, code = sass_function(sass_functions(build.library_path("fused_chain")),
-                            r"mc_chain_kernelILi4ELi4ELi1E")
-    fwd = sass_loops(code, "MUFU.RSQ")[0]              # one sqrtf a symbol
-    tb = next(r for r in sass_loops(code, "POPC")       # the error count a word
-              if r[1] < fwd[0] or r[0] > fwd[1])
-    body, tbody = sass_body(code, *fwd), sass_body(code, *tb)
-    per_iter = sum(sass_op(t)[1] == "MUFU.RSQ" for t in body)
-    always, tb_always = sass_always(code, *fwd), sass_always(code, *tb)
-    rows = 8   # the traceback walks a packed word (32 / S rows) an iteration
-    out["mc_chain_instr"] = always / per_iter + tb_always / rows
-    print(f"SASS mc_chain_kernel<4, 4, soft>: forward loop {len(body)} instructions for "
-          f"{per_iter} symbols ({always} issued every iteration), traceback loop "
-          f"{len(tbody)} for {rows} rows ({tb_always} every iteration): "
-          f"{out['mc_chain_instr']:.1f} instructions every symbol issues")
+    for key, lib, mode, label in (("mc_chain_instr", "fused_chain", 1, "soft"),
+                                  ("mc_chain_fast_demap_instr", "fused_chain_lin", 3,
+                                   "soft, fast_demap")):
+        _, code = sass_function(sass_functions(build.library_path(lib)),
+                                rf"mc_chain_kernelILi4ELi4ELi{mode}E")
+        fwd = sass_loops(code, "MUFU.RSQ")[0]              # one sqrtf a symbol
+        tb = next(r for r in sass_loops(code, "POPC")       # the error count a word
+                  if r[1] < fwd[0] or r[0] > fwd[1])
+        body, tbody = sass_body(code, *fwd), sass_body(code, *tb)
+        per_iter = sum(sass_op(t)[1] == "MUFU.RSQ" for t in body)
+        always, tb_always = sass_always(code, *fwd), sass_always(code, *tb)
+        rows = 8   # the traceback walks a packed word (32 / S rows) an iteration
+        out[key] = always / per_iter + tb_always / rows
+        print(f"SASS mc_chain_kernel<4, 4, {label}>: forward loop {len(body)} instructions "
+              f"for {per_iter} symbols ({always} issued every iteration), traceback loop "
+              f"{len(tbody)} for {rows} rows ({tb_always} every iteration): "
+              f"{out[key]:.1f} instructions every symbol issues")
     _, code = sass_function(sass_functions(build.library_path("longframe")),
                             r"stream_acs_kernelILi64ELi4ELb0EE")
     # the unrolled step loop: the innermost loop with the most ballots,
@@ -544,18 +562,20 @@ def check_fused_kernel(torch, dev, stats):
         require(diff == 0 if ch == "bsc" else diff <= 1,
                 f"fused golden {key}: {diff} lanes differ")
 
-    def compare(code, batch, nsteps, seed, p, ch, dm):
-        kw = dict(channel=ch, block_lanes=1024, demapper=dm, device=dev)
+    def compare(code, batch, nsteps, seed, p, ch, dm, variant=""):
+        kw = dict(channel=ch, block_lanes=1024, demapper=dm, device=dev, variant=variant)
         e, f = mc_chain_viterbi(code, batch, nsteps, seed, p, **kw)
         e_r, f_r = mc_chain_viterbi_ref(code, batch, nsteps, seed, p, **kw)
         lanes = int(((e != e_r) | (f != f_r)).sum())
         err = float(torch.maximum((e - e_r).abs(), (f - f_r).abs()).max())
         stats["mc_chain"] = max(stats["mc_chain"], err)
-        print(f"fused kernel vs plain {code.name} {ch}/{dm} batch {batch}: "
-              f"{lanes}/{batch} lanes differ, max |counter diff| {err:g}, "
+        print(f"fused kernel vs plain {code.name} {ch}/{dm}{' ' + variant if variant else ''} "
+              f"batch {batch}: {lanes}/{batch} lanes differ, max |counter diff| {err:g}, "
               f"bit errors {int(e.sum())}")
-        require(lanes == 0 if ch == "bsc" else lanes <= batch // 100,
-                f"fused kernel vs plain {code.name} {ch}/{dm}: {lanes} lanes differ")
+        exact = ch == "bsc" or variant   # fast_demap: lane for lane
+        require(lanes == 0 if exact else lanes <= batch // 100,
+                f"fused kernel vs plain {code.name} {ch}/{dm} {variant}: {lanes} lanes differ")
+        return int(e.sum())
 
     for name in ("k3-r12", "k4-r12", "k9-r12"):
         compare(get_code(name), 8192, 2, 7, 0.05, "bsc", "soft")
@@ -567,6 +587,15 @@ def check_fused_kernel(torch, dev, stats):
     for ck in (0, 1, 5):
         compare(get_code(ck), 1 << 20, 1, 5, 0.0125, "bsc", "soft")
     compare(get_code(0), 1 << 20, 1, 5, float(awgn_sigma(8.0)), "awgn", "soft")
+    # fast_demap (the linear demapper): code 0 (QPSK, constant-modulus) and
+    # code 5 (8-QAM, each point's |p|^2 kept), soft and snap, at 2^16 lanes
+    for ck in (0, 5):
+        for dm in ("soft", "hard"):
+            lin = compare(get_code(ck), 1 << 16, 2, 9, s4, "awgn", dm, "fast_demap")
+            exact, _ = mc_chain_viterbi(get_code(ck), 1 << 16, 2, 9, s4, "awgn",
+                                        demapper=dm, device=dev)
+            print(f"  fast_demap {get_code(ck).name}/{dm}: {lin} bit errors, the exact "
+                  f"demapper on the same streams {int(exact.sum())}")
     n = 1 << 24
     ds, dc = sincos_mismatches(n, 5, dev)
     print(f"sincosf vs sinf, cosf on {n} Box-Muller angles 2 pi u (salt 2): {ds} sines and "
@@ -1065,6 +1094,249 @@ def check_longframe_lanes(torch, dev, stats):
         require(mono_diff <= limit, f"{tag} vs whole-stream decode: {mono_diff}")
 
 
+#: phase 3's random user codes: (K, symlen, parity) of each draw, the rest
+#: (polynomials with the top bit set, block length 8-48 with one at 8,
+#: stack/Fano metrics and weights) drawn from RANDOM_CODE_SEED.  K covers
+#: every S of CC_DISPATCH (4 .. 256), symlen 2-4, both parity modes with
+#: compat at K >= 5 (the quirk's register bits), and (S, M) pairs no
+#: registered code uses (S = 128 with M = 8, S = 256 with M = 16)
+RANDOM_CODE_PLAN = [(3, 3, "true"), (4, 4, "compat"), (5, 2, "compat"), (6, 3, "compat"),
+                    (7, 4, "true"), (8, 3, "compat"), (9, 2, "true"), (9, 4, "compat")]
+RANDOM_CODE_SEED = 2610
+#: the big-K code of the check (kernels 9-10): K 28-32, rate 1/2
+RANDOM_BIG_K_SEED = 2611
+#: kernels 7-8's points in the check, 256 lanes x 1 frame (the plain stack
+#: machine has no budget: clean points keep its walks short)
+RANDOM_SEQ_POINTS = (("bsc", 0.01), ("awgn", 8.0))
+
+
+def random_codes():
+    """The drawn codes of the random-code check: RANDOM_CODE_PLAN's and one
+    big-K code, each a ``Code`` of the port."""
+    from convolutional_codes_tpu_torch.models.codebook import Code
+
+    rng = np.random.default_rng(RANDOM_CODE_SEED)
+    codes = []
+    for i, (K, symlen, parity) in enumerate(RANDOM_CODE_PLAN):
+        polys = tuple(int(rng.integers(1, 1 << K)) | (1 << (K - 1)) for _ in range(symlen))
+        wrong = -int(rng.integers(5, 60))
+        codes.append(Code(
+            name=f"random-{i}", symlen_out=symlen, constraint_length=K,
+            block_length=8 if i == 0 else int(rng.integers(8, 49)), polynomials=polys,
+            bit_metrics=(1, wrong), fano_bit_metrics=(1, wrong - 5),
+            metric_weight=-float(rng.integers(5, 26)),
+            fano_metric_weight=-float(rng.integers(40, 221)), parity=parity))
+    rng = np.random.default_rng(RANDOM_BIG_K_SEED)
+    K = int(rng.integers(28, 33))
+    polys = tuple(int(rng.integers(1, 1 << K)) | (1 << (K - 1)) for _ in range(2))
+    wrong = -int(rng.integers(20, 50))
+    codes.append(Code(name="random-big-k", symlen_out=2, constraint_length=K,
+                      block_length=int(rng.integers(12, 20)), polynomials=polys,
+                      bit_metrics=(1, wrong), fano_bit_metrics=(1, wrong - 8),
+                      metric_weight=-9.0, fano_metric_weight=-13.0, parity="compat"))
+    return codes
+
+
+def oracle_frames(code, n: int, seed: int, sigma: float = 0.4, flip: float = 0.04):
+    """n frames of random info bits through the C oracle's encoder (held
+    equal to the port's), as noisy soft distances [n, T, M] float32 (the
+    constellation's points plus Gaussian noise, squared distances over the
+    demapper's ndist) and hard symbols [n, T] int32 (each coded bit flipped
+    with probability ``flip``), from numpy."""
+    import torch
+    from convolutional_codes_tpu_torch.models.constellations import get_constellation
+    from convolutional_codes_tpu_torch.ops.encoder import encode
+    from convolutional_codes_tpu_torch.utils import native
+
+    rng = np.random.default_rng(seed)
+    T, M = code.num_block_symbols, code.points_per_symbol
+    bits = rng.integers(0, 2, (n, code.block_length))
+    syms = native.encode_blocks(code, bits)
+    require(np.array_equal(encode(code, torch.as_tensor(bits)).numpy(), syms),
+            f"{code.name}: the port's encoder differs from the oracle's")
+    const = np.asarray(get_constellation(code.symlen_out), np.float32)
+    d = (const[syms] + rng.normal(0.0, sigma, (n, T, 2)).astype(np.float32))[:, :, None] - const
+    dists = ((d * d).sum(-1) / ((const[0] - const[1]) ** 2).sum()).astype(np.float32)
+    flips = (rng.random((n, T, code.symlen_out)) < flip) << np.arange(code.symlen_out)
+    return dists, (syms ^ flips.sum(-1)).astype(np.int32)
+
+
+#: run in a child process by ``oracle_stack_isolated``: argv = the
+#: repository and a directory holding jobs.pkl, a list of (code, frames,
+#: soft); writes out.pkl, the C oracle's stack bits of each job
+ORACLE_STACK_WORKER = r"""
+import pickle
+import sys
+sys.path.insert(0, sys.argv[1])
+from convolutional_codes_tpu_torch.utils import native
+with open(f"{sys.argv[2]}/jobs.pkl", "rb") as f:
+    jobs = pickle.load(f)
+out = [(native.stack_soft_blocks if soft else native.stack_hard_blocks)(code, x)
+       for code, x, soft in jobs]
+with open(f"{sys.argv[2]}/out.pkl", "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def oracle_stack_isolated(jobs):
+    """The C oracle's stack decode of each (code, frames, soft) job, in a
+    child process: on the stack's alias corner (ROADMAP Q3) the oracle
+    writes a byte past its row, which must not reach this process's
+    memory."""
+    import pickle
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "jobs.pkl"), "wb") as f:
+            pickle.dump(jobs, f)
+        proc = subprocess.run([sys.executable, "-c", ORACLE_STACK_WORKER, ROOT, tmp],
+                              capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"the oracle's stack decode failed: {proc.stderr[-2000:]}")
+        with open(os.path.join(tmp, "out.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+def check_random_codes(torch, dev, stats):
+    """Random user codes (RANDOM_CODE_PLAN and a big-K code) through every
+    kernel whose limits admit them: kernels 1-2 and 10 against the C
+    oracle (``utils/native.py``) bit for bit on noisy frames, kernel 9
+    against the plain machine (and the oracle's differing frames counted:
+    the stack's alias corner, where the oracle and the JAX package part
+    ways, ROADMAP Q3; the oracle's stack decode runs in a child process,
+    ``oracle_stack_isolated``), kernels 4-5
+    against the plain streaming decode on terminated streams, kernels 3, 6,
+    7 and 8 against their plain versions (BSC counters exact, AWGN lanes
+    that differ counted; 0 expected).  A kernel is skipped only where the
+    JAX package's counterpart refuses the code too."""
+    from convolutional_codes_tpu_torch.models.trellis import quirk_mask_low
+    from convolutional_codes_tpu_torch.ops import fano_cuda, fano_mc, stack_mc
+    from convolutional_codes_tpu_torch.ops import fused_chain as fc
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops import mc_datagen
+    from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.viterbi import (
+        KERNEL_MAX_STATES, viterbi_decode_hard, viterbi_decode_soft)
+    from convolutional_codes_tpu_torch.parallel.streaming import long_frame_decode_stream
+    from convolutional_codes_tpu_torch.utils import native
+
+    require(native.available(), "the C oracle does not build (gcc)")
+    t_all = time.time()
+    codes = random_codes()
+    frames = [oracle_frames(c, 512, c.constraint_length + 7 * c.points_per_symbol)
+              for c in codes]
+    stack_oracle = iter(oracle_stack_isolated(
+        [(c, x, soft) for c, (d, rx) in zip(codes, frames) for soft, x in ((True, d), (False, rx))]))
+    print(f"the C oracle's stack decode of the random codes in a child process "
+          f"[{time.time() - t_all:.1f} s with the frames]")
+    for code, (dists, rx) in zip(codes, frames):
+        t0 = time.time()
+        S, M, T = code.num_states, code.points_per_symbol, code.num_block_symbols
+        quirk = code.parity == "compat" and any(
+            p & quirk_mask_low(code.constraint_length) for p in code.polynomials)
+        print(f"random code {code.name}: K={code.constraint_length} (S={S}) symlen="
+              f"{code.symlen_out} (M={M}) L={code.block_length} T={T} polys="
+              f"{[oct(p) for p in code.polynomials]} parity={code.parity}"
+              f"{' (the quirk bites)' if quirk else ''} bit_metrics={code.bit_metrics} "
+              f"fano_bit_metrics={code.fano_bit_metrics} metric_weight={code.metric_weight} "
+              f"fano_metric_weight={code.fano_metric_weight}")
+        done = []
+        # kernels 1-2: the Viterbi decoders on the oracle's frames
+        if S <= KERNEL_MAX_STATES:
+            n = (vc.acs_forward_cuda.launches, vc.traceback_cuda.launches)
+            vs = viterbi_decode_soft(code, torch.as_tensor(dists, device=dev))
+            vh, vm = viterbi_decode_hard(code, torch.as_tensor(rx, device=dev))
+            torch.cuda.synchronize()
+            require((vc.acs_forward_cuda.launches, vc.traceback_cuda.launches)
+                    == (n[0] + 2, n[1] + 2), f"{code.name}: kernels 1-2 did not launch")
+            ob, (hb, hm) = native.viterbi_soft_blocks(code, dists), native.viterbi_hard_blocks(
+                code, rx)
+            require(np.array_equal(vs.cpu().numpy(), ob), f"{code.name}: kernels 1-2 soft")
+            require(np.array_equal(vh.cpu().numpy(), hb) and np.array_equal(vm.cpu().numpy(), hm),
+                    f"{code.name}: kernels 1-2 hard (bits or path metrics)")
+            done.append("1-2 = oracle (512 frames, soft; hard bits and metrics)")
+            # kernels 4-5: a terminated stream of 3,000 symbols, soft and hard
+            g = torch.Generator(device=dev).manual_seed(code.constraint_length)
+            _, d = awgn_frames(torch, code, 16, 3000, 3.0, g)
+            xor = torch.randint(0, M, (16, 3000, 1), generator=g, device=dev) ^ torch.arange(
+                M, device=dev)
+            hd = sum((xor >> k) & 1 for k in range(code.symlen_out)).to(torch.float32)
+            for hard, x in ((False, d), (True, hd)):
+                got = long_frame_decode_stream(code, x, hard)
+                want = long_frame_decode_stream(code, x.cpu(), hard)
+                require(torch.equal(got.cpu(), want), f"{code.name}: kernels 4-5 hard={hard}")
+            done.append("4-5 = plain (16 x 3000, soft and hard)")
+        # kernels 9-10: 512 noisy frames, soft and hard: kernel 9 against the
+        # plain machine (every output) and the oracle's bits, kernel 10
+        # against the oracle (bits and timeouts)
+        alias = []
+        for soft, x in ((True, dists), (False, rx)):
+            xt = torch.as_tensor(x, device=dev)
+            got, want = decode_supplied("stack", code, xt, soft, 0), decode_plain(
+                "stack", code, xt, soft, 0)
+            fb, diag = fano_cuda.fano_decode_cuda(code, xt, soft, 1000, with_diag=True)
+            torch.cuda.synchronize()
+            bad, _ = supplied_diff(torch, got, want)
+            require(not bad, f"{code.name}: kernel 9 soft={soft} vs the plain machine: {bad}")
+            so = next(stack_oracle)
+            alias.append(int((got[0].cpu().numpy() != so).any(1).sum()))
+            fo, ft = (native.fano_soft_blocks if soft else native.fano_hard_blocks)(code, x, 1000)
+            require(np.array_equal(fb.cpu().numpy(), fo)
+                    and np.array_equal(diag["timed_out"].cpu().numpy().astype(np.int8), ft),
+                    f"{code.name}: kernel 10 soft={soft} (bits or timeouts)")
+        done.append(f"9 = plain (512 frames, soft and hard; {alias} frames off the oracle: the "
+                    f"alias corner, ROADMAP Q3); 10 = oracle (timeouts at 1000 a bit: "
+                    f"{int(ft.sum())} hard)")
+        sigma, p = float(awgn_sigma(4.0)), 0.03
+        # kernels 3 and 6: S <= 256 and M <= 8, as the JAX package's fused_mc_eligible
+        if S > fc.MAX_STATES:
+            done.append(f"1-6 skipped: S = {S} (the JAX package's Viterbi kernels take S <= 256)")
+        elif M <= fc.MAX_POINTS:
+            for ch, prm in (("bsc", p), ("awgn", sigma)):
+                kw = dict(channel=ch, block_lanes=1024, device=dev)
+                e, f = fc.mc_chain_viterbi(code, 8192, 2, 17, prm, **kw)
+                e_r, f_r = fc.mc_chain_viterbi_ref(code, 8192, 2, 17, prm, **kw)
+                lanes = int(((e != e_r) | (f != f_r)).sum())
+                require(lanes == 0 if ch == "bsc" else lanes <= 8192 // 100,
+                        f"{code.name}: kernel 3 {ch}, {lanes} lanes differ")
+                stats["mc_chain"] = max(stats["mc_chain"], float((e - e_r).abs().max()))
+                done.append(f"3 {ch} {lanes}/8192 lanes off ({int(e.sum())} bit errors)")
+                kw = dict(channel=ch, window=256, warmup=64, device=dev)
+                be, we = fl.mc_longframe_viterbi(code, 1024, 2, 17, prm, **kw)
+                be_r, we_r = fl.mc_longframe_viterbi_ref(code, 1024, 2, 17, prm, **kw)
+                lanes = int(((be != be_r) | (we != we_r)).sum())
+                require(lanes == 0 if ch == "bsc" else lanes <= 1024 // 100,
+                        f"{code.name}: kernel 6 {ch}, {lanes} lanes differ")
+                stats["mc_longframe"] = max(stats["mc_longframe"], float(
+                    (be - be_r).abs().max()))
+                done.append(f"6 {ch} {lanes}/1024 off ({int(be.sum())})")
+        else:
+            done.append(f"3 and 6 skipped: M = {M} > 8 (the JAX package's fused_mc_eligible "
+                        "refuses M > 8 for kernel 3; kernel 6: ROADMAP Q3)")
+        # kernels 7-8: per lane against the plain machine on the kernel's own
+        # frames (exact), and the plain datagen's counters (BSC: exact)
+        for decoder, mc, ref in (("stack", stack_mc.mc_stack, stack_mc.mc_stack_ref),
+                                 ("fano", fano_mc.mc_fano, fano_mc.mc_fano_ref)):
+            kw = {"timeout_per_bit": 50} if decoder == "fano" else {}
+            for ch, prm in RANDOM_SEQ_POINTS:
+                prm = float(awgn_sigma(prm)) if ch == "awgn" else prm
+                k = mc(code, 256, 1, 19, prm, ch, device=dev, **kw)
+                gids = torch.arange(256, device=dev)
+                bits, syms = mc_datagen.frames_cuda(code, gids, 19, prm, ch)
+                plain = decode_plain(decoder, code, syms, ch == "awgn", kw.get("timeout_per_bit"))
+                own = torch.zeros_like(k)
+                stack_mc.count_errors(own, gids, plain[0], bits, plain[1]["iters"])
+                r = ref(code, 256, 1, 19, prm, ch, device=dev, **kw)
+                own_diff, ref_diff = int((k != own).any(0).sum()), int((k != r).any(0).sum())
+                require(own_diff == 0 and (ch == "awgn" or ref_diff == 0),
+                        f"{code.name}: kernel {7 if decoder == 'stack' else 8} {ch}: "
+                        f"{own_diff} lanes off on its own frames, {ref_diff} off the plain")
+                stats["mc_" + decoder] = max(stats["mc_" + decoder],
+                                             float((k - own).abs().max()))
+                done.append(f"{7 if decoder == 'stack' else 8} {ch} {ref_diff}/256 off")
+        print(f"  {code.name}: kernels {'; '.join(done)} [{time.time() - t0:.1f} s]")
+    print(f"random user codes: every kernel equal to the oracle or its plain version "
+          f"[{time.time() - t_all:.1f} s]")
+
+
 def run_main_path(torch, dev, gold, tmp):
     """The CLI's two code-0 sweeps and the modular chain; returns the
     z-checked rows."""
@@ -1099,6 +1371,38 @@ def run_main_path(torch, dev, gold, tmp):
             frame_errors=fe, frames=nb // code.block_length, ber=be / nb,
             fer=fe / (nb // code.block_length), wall_s=wall, bits_per_s=nb / wall)))
     return results
+
+
+def traced_point(torch, tmp):
+    """One more CLI point of the Viterbi path (code 0, AWGN 8 dB, its
+    sweep's tier), run outside the launch counters' window, untraced and
+    then with ``--trace``: the trace must hold kernel 3
+    (``mc_chain_kernel``) among its CUDA kernels, which shows that CUPTI
+    sees the kernels launched from the ctypes-bound libraries."""
+    import glob
+    from convolutional_codes_tpu_torch.sim import cli
+
+    args = ["awgn", "--code", "0", "--decoder", "viterbi", "--frames", "1048576",
+            "--bits-scale", "0.1", "--points", "8"]
+    walls = {}
+    for traced in (False, True):
+        t0 = time.time()
+        extra = ["--trace", os.path.join(tmp, "trace")] if traced else []
+        require(cli.main(args + extra) == 0, "traced cli")
+        walls[traced] = time.time() - t0
+    files = glob.glob(os.path.join(tmp, "trace", "point_8", "*.pt.trace.json"))
+    require(len(files) == 1, f"--trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    chain = [e for e in kernels if "mc_chain_kernel" in e.get("name", "")]
+    named = any(e.get("name") == "sweep_point_8" for e in events)
+    print(f"  --trace: the trace of point 8 ({os.path.getsize(files[0])} bytes): "
+          f"{len(kernels)} CUDA kernel events, {len(chain)} of mc_chain_kernel "
+          f"({sum(e.get('dur', 0) for e in chain) / 1e3:.3f} ms of device time), "
+          f"sweep_point_8 {'named' if named else 'MISSING'}; wall {walls[True]:.3f} s traced "
+          f"(the profiler's start included), {walls[False]:.3f} s not")
+    require(chain and named, "the trace does not name mc_chain_kernel and sweep_point_8")
 
 
 def run_sequential_path(torch, dev, tmp, decoder: str, scale: str, grid_idx):
@@ -1342,6 +1646,7 @@ def run_mesh_path(torch, dev):
     print(f"  streaming_viterbi_decode seq=4, nasa-k7 [128, 65536] 6 dB, warmup 128: "
           f"{nbad} bits differ from long_frame_decode_stream")
     require(nbad == 0, "streaming_viterbi_decode differs from the exact decode")
+    halo_across_processes(torch, dev, d[:32, :16384].contiguous())
 
     results = []
     spec = SweepSpec(code=0, channel="awgn", decoder="viterbi", points=(8.0, 10.0),
@@ -1379,6 +1684,76 @@ def run_mesh_path(torch, dev):
               f"{statistics.median(ratios):.4f} (slots share the card: this is the layer's "
               f"cost, not scaling)")
     return results
+
+
+#: run by each of two processes in ``halo_across_processes``: argv = the
+#: repository, rank, port, directory of the stream; one slot of cuda:0 each
+HALO_WORKER = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+rank, port, path = int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+from convolutional_codes_tpu_torch import get_code
+from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
+from convolutional_codes_tpu_torch.parallel.streaming import streaming_viterbi_decode
+dev = torch.device("cuda", 0)
+d = torch.as_tensor(np.load(f"{path}/dists.npy"), device=dev)
+mesh = make_mesh({"seq": 2}, devices=[dev])
+bits = streaming_viterbi_decode(get_code("nasa-k7"), d, mesh, warmup=128)
+torch.cuda.synchronize()
+np.save(f"{path}/bits{rank}.npy", bits.cpu().numpy())
+print("rank", rank, "of", mesh.world, "launches", lc.stream_acs_cuda.launches,
+      lc.stream_traceback_cuda.launches)
+dist.destroy_process_group()
+"""
+
+
+def halo_across_processes(torch, dev, d):
+    """The time-block decode on a seq mesh of two processes, one slot of the
+    card each, over gloo (NCCL refuses two ranks on one card): the halos
+    cross between the processes by point-to-point sends (through the host),
+    and each process's bits must equal the one-process decode over two
+    slots and the exact decode."""
+    import socket
+    from convolutional_codes_tpu_torch import get_code
+    from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
+    from convolutional_codes_tpu_torch.parallel.streaming import (
+        long_frame_decode_stream, streaming_viterbi_decode)
+
+    k7 = get_code("nasa-k7")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "dists.npy"), d.cpu().numpy())
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = str(s.getsockname()[1])
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, "-c", HALO_WORKER, ROOT, str(r), port, tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=300))
+            finally:
+                p.kill()
+        wall = time.time() - t0
+        for p, (out, err) in zip(procs, outs):
+            require(p.returncode == 0, f"halo worker failed: {err[-2000:]}")
+            print(f"  {out.strip()}")
+        got = [torch.as_tensor(np.load(os.path.join(tmp, f"bits{r}.npy"))) for r in range(2)]
+    one = streaming_viterbi_decode(k7, d, make_mesh({"seq": 2}, devices=[dev] * 2),
+                                   warmup=128).cpu()
+    exact = long_frame_decode_stream(k7, d).cpu()
+    off = [int((g != one).sum()) for g in got]
+    print(f"  streaming_viterbi_decode on 2 processes x 1 slot of {dev} (gloo), nasa-k7 "
+          f"{list(d.shape[:2])}: {off} bits differ from the one-process decode over 2 slots, "
+          f"which is {int((one != exact).sum())} bits off the exact decode; {wall:.1f} s with "
+          "the processes' start")
+    require(off == [0, 0] and torch.equal(one, exact), "the halo exchange across processes")
 
 
 def check_points(results, gold, row="ber_coded_a"):
@@ -1427,15 +1802,31 @@ def measure(torch, dev, card, clock, sass):
           f"{PUBLISHED_BER_8DB:.4e}, {times['mc_chain']:.4f} ms per step (before: "
           f"{BEFORE_MS['mc_chain']:.4f} ms)")
 
-    mc_chain_viterbi_ref(code, B, 1, 1, sigma, device=dev)         # warm-up
+    plain = {}
+    for variant in ("", "fast_demap"):
+        key = "mc_chain" + ("_" + variant if variant else "")
+        mc_chain_viterbi_ref(code, B, 1, 1, sigma, device=dev, variant=variant)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mc_chain_viterbi_ref(code, B, 2, 100, sigma, device=dev, variant=variant)
+        torch.cuda.synchronize()
+        plain[key] = (time.time() - t0) * 1e3 / 2
+        print(f"plain fused chain{' ' + variant if variant else ''} [{card}]: {B} lanes x 2 "
+              f"steps: {plain[key]:.3f} ms per step, {B * L / plain[key] * 1e3:.6e} info bits/s")
+
+    # fast_demap at the headline shape, beside the exact demapper above
+    mc_chain_viterbi(code, B, nsteps, 1, sigma, device=dev, variant="fast_demap")
     torch.cuda.synchronize()
     t0 = time.time()
-    mc_chain_viterbi_ref(code, B, 2, 100, sigma, device=dev)
+    errs_lin = [mc_chain_viterbi(code, B, nsteps, 100 + i, sigma, device=dev,
+                                 variant="fast_demap")[0] for i in range(calls)]
     torch.cuda.synchronize()
-    plain = {"mc_chain": (time.time() - t0) * 1e3 / 2}
-    print(f"plain fused chain [{card}]: {B} lanes x 2 steps: "
-          f"{plain['mc_chain']:.3f} ms per step, "
-          f"{B * L / plain['mc_chain'] * 1e3:.6e} info bits/s")
+    dt_lin = time.time() - t0
+    times["mc_chain_fast_demap"] = dt_lin * 1e3 / (calls * nsteps)
+    ber_lin = sum(int(e.sum()) for e in errs_lin) / bits
+    print(f"headline fast_demap [{card}]: {bits / dt_lin:.6e} info bits/s, "
+          f"{times['mc_chain_fast_demap']:.4f} ms per step (the exact demapper: {rate:.6e}, "
+          f"{times['mc_chain']:.4f} ms), BER {ber_lin:.6e} (exact {ber:.6e}, same streams)")
 
     Bv = 262144
     T, M, S = code.num_block_symbols, code.points_per_symbol, code.num_states
@@ -1459,6 +1850,8 @@ def measure(torch, dev, card, clock, sass):
         # the operations per trellis symbol of the function (LANE_OPS)
         "mc_chain": (B * T * mc_chain_ops_per_symbol(code)
                      / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3, "operations"),
+        "mc_chain_fast_demap": (B * T * mc_chain_ops_per_symbol(code, lin=True)
+                                / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3, "operations"),
     }
     for k in ("acs_forward", "traceback"):
         before = BEFORE_MS[k]
@@ -1479,6 +1872,14 @@ def measure(torch, dev, card, clock, sass):
           f"this build {issue_ms:.4f} ms ({sass['mc_chain_instr']:.1f} SASS instructions every "
           f"symbol issues); kernel {times['mc_chain']:.4f} ms, "
           f"{bound['mc_chain'][0] / times['mc_chain']:.1%} of the bound")
+    lin = "mc_chain_fast_demap"
+    issue_lin = (B * T * sass["mc_chain_fast_demap_instr"]
+                 / (SMS * LANE_SLOTS_PER_SM * clock) * 1e3)
+    print(f"mc_chain fast_demap bound: {bound[lin][0]:.4f} ms per step (operations: "
+          f"{mc_chain_ops_per_symbol(code, lin=True):.1f} per symbol, the linear form); issue "
+          f"time of this build {issue_lin:.4f} ms ({sass['mc_chain_fast_demap_instr']:.1f} SASS "
+          f"instructions every symbol issues); kernel {times[lin]:.4f} ms, "
+          f"{bound[lin][0] / times[lin]:.1%} of the bound; plain {plain[lin]:.3f} ms")
     return times, plain, bound
 
 
@@ -1494,18 +1895,32 @@ LANE_OPS = {"hash": 18, "uniform": 4, "acs_state": 8, "traceback_row": 9,
             "transcendentals": 20 + 7 + 22}
 
 
-def mc_chain_ops_per_symbol(code) -> float:
+def lin_demap_ops(code) -> int:
+    """Operations of fast_demap's linear distance vector (the JAX package's
+    ``dist_vec_lin``): one product per unique nonzero |I| and |Q|
+    coordinate, one signed sum or negation a point, and a point's |p|^2
+    added where the constellation is not constant-modulus."""
+    from convolutional_codes_tpu_torch.models.constellations import get_constellation
+
+    pts = np.asarray(get_constellation(code.symlen_out), np.float64)
+    mods = {round(float(x * x + y * y), 9) for x, y in pts}
+    uniq = len({abs(x) for x in pts[:, 0] if x}) + len({abs(y) for y in pts[:, 1] if y})
+    return uniq + len(pts) * (1 if len(mods) == 1 else 2)
+
+
+def mc_chain_ops_per_symbol(code, lin: bool = False) -> float:
     """Operations per lane and trellis symbol of kernel 3's function on
     AWGN with soft metrics (LANE_OPS): the info bit's hash and mask on the
     rows below L; the encoder register and its expected symbol (5); two
     uniforms; Box-Muller (the transcendentals, 2 pi u and -2 log u, then r
     c and r s, scaled by sigma and added to the point: 10 more); a distance
-    a point (2 subtractions, 2 squares, an add, a scale); the ACS of every
-    state; one traceback row."""
+    a point (2 subtractions, 2 squares, an add, a scale), or with ``lin``
+    the linear form's (:func:`lin_demap_ops`); the ACS of every state; one
+    traceback row."""
     o = LANE_OPS
     ops = code.block_length / code.num_block_symbols * (o["hash"] + 1) + 5
     ops += 2 * (o["hash"] + o["uniform"]) + o["transcendentals"] + 10
-    ops += 6 * code.points_per_symbol
+    ops += lin_demap_ops(code) if lin else 6 * code.points_per_symbol
     return ops + o["acs_state"] * code.num_states + o["traceback_row"]
 
 
@@ -2167,6 +2582,13 @@ def kernel_times(torch, dev, card, ref_path=None) -> None:
     ms = cuda_ms(lambda: mc_chain_viterbi(code, B, nsteps, 100, sigma, device=dev), 4) / nsteps
     print(f"  kernel 3: code 0 AWGN 8 dB, {B} lanes x {nsteps} steps: {ms:.4f} ms per step "
           f"({B * code.block_length / ms * 1e3:.6e} info bits/s of device time)")
+    if "variant" in inspect.signature(mc_chain_viterbi).parameters:   # trees with fast_demap
+        run = lambda: mc_chain_viterbi(code, B, nsteps, 100, sigma, device=dev,
+                                       variant="fast_demap")
+        run()
+        ms = cuda_ms(run, 4) / nsteps
+        print(f"  kernel 3 fast_demap: same shape: {ms:.4f} ms per step "
+              f"({B * code.block_length / ms * 1e3:.6e} info bits/s of device time)")
     for ck, B, T, hard in KERNEL4_TIMES:
         code = k8_code() if ck == "k8-r12" else get_code(ck)
         g = torch.Generator(device=dev).manual_seed(3)
@@ -2272,6 +2694,7 @@ def main() -> int:
         check_longframe_kernels(torch, dev, stats)
         check_traceback_designs(torch, dev, stats)
         check_longframe_lanes(torch, dev, stats)
+        check_random_codes(torch, dev, stats)
         for k, w in wrappers.items():
             require(w.launches > 0, f"kernel {k} was never launched")
         print("launches in the checks: " + ", ".join(
@@ -2313,6 +2736,8 @@ def main() -> int:
                 launches[k] = launches.get(k, 0) + counts[k]
             for k in absent:
                 require(counts[k] == 0, f"kernel {k} was launched on the {path} path")
+    with phase("4 traced point"), tempfile.TemporaryDirectory() as tmp:
+        traced_point(torch, tmp)
 
     with phase("5 throughput"):
         card, clock = card_line(), sm_clock_hz()

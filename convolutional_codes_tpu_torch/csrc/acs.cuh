@@ -111,15 +111,30 @@ static inline unsigned long long pack_esym_table(int K, int symlen, const unsign
     default: return cudaErrorInvalidValue; \
   }
 
-#define CC_DISPATCH(S, M, LAUNCH)                      \
+// The same with M in {2, 4, 8, 16}: for the stream ACS (kernels 1 and 4),
+// which holds no per-thread array of M, so rate-1/4 codes (16 points) take
+// it as the JAX package's ACS kernels take any M.
+#define CC_DISPATCH_M16(S_, M, LAUNCH)     \
+  switch (M) {                             \
+    case 2: LAUNCH(S_, 2); break;          \
+    case 4: LAUNCH(S_, 4); break;          \
+    case 8: LAUNCH(S_, 8); break;          \
+    case 16: LAUNCH(S_, 16); break;        \
+    default: return cudaErrorInvalidValue; \
+  }
+
+#define CC_DISPATCH_S(S, M, LAUNCH, BY_M)              \
   switch (S) {                                         \
-    case 2: CC_DISPATCH_M(2, M, LAUNCH); break;        \
-    case 4: CC_DISPATCH_M(4, M, LAUNCH); break;        \
-    case 8: CC_DISPATCH_M(8, M, LAUNCH); break;        \
-    case 16: CC_DISPATCH_M(16, M, LAUNCH); break;      \
-    case 32: CC_DISPATCH_M(32, M, LAUNCH); break;      \
-    case 64: CC_DISPATCH_M(64, M, LAUNCH); break;      \
-    case 128: CC_DISPATCH_M(128, M, LAUNCH); break;    \
-    case 256: CC_DISPATCH_M(256, M, LAUNCH); break;    \
+    case 2: BY_M(2, M, LAUNCH); break;                 \
+    case 4: BY_M(4, M, LAUNCH); break;                 \
+    case 8: BY_M(8, M, LAUNCH); break;                 \
+    case 16: BY_M(16, M, LAUNCH); break;               \
+    case 32: BY_M(32, M, LAUNCH); break;               \
+    case 64: BY_M(64, M, LAUNCH); break;               \
+    case 128: BY_M(128, M, LAUNCH); break;             \
+    case 256: BY_M(256, M, LAUNCH); break;             \
     default: return cudaErrorInvalidValue;             \
   }
+
+#define CC_DISPATCH(S, M, LAUNCH) CC_DISPATCH_S(S, M, LAUNCH, CC_DISPATCH_M)
+#define CC_DISPATCH16(S, M, LAUNCH) CC_DISPATCH_S(S, M, LAUNCH, CC_DISPATCH_M16)

@@ -466,7 +466,7 @@ int cc_stream_acs(const float* dists, const float* init, float* fm, int* dec, in
   fill_trellis(&tt, esym_prev, S);
 #define CC_LAUNCH_STREAM_ACS(S_, M_) \
   launch_stream_acs<S_, M_>(dists, init, fm, dec, T, B, hard, tt, stream)
-  CC_DISPATCH(S, M, CC_LAUNCH_STREAM_ACS)
+  CC_DISPATCH16(S, M, CC_LAUNCH_STREAM_ACS)
 #undef CC_LAUNCH_STREAM_ACS
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,14 @@ of log/sqrt/sin/cos between the three math libraries.
 
 ``mc_chain_viterbi`` takes a ``device``: CPU runs the plain version, CUDA
 launches the kernel (counted in ``mc_chain_viterbi.launches``) or raises.
+
+``variant="fast_demap"`` (the JAX package's opt-in variant, fused_chain.py
+:140-249) replaces the squared-distance vector by its linear form
+(:func:`_dist_vec_lin`), in the kernel (its instances built apart, in
+``csrc/fused_chain_lin.cu``) and the plain version alike: a
+statistical-contract variant, its BER equal to the exact demapper's up to
+float rounding.  The JAX package's other tokens (``bf16_acs`` and the
+measurement ablations) are not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +55,15 @@ MAX_SYMBOLS = 256
 
 CHANNELS = ("awgn", "bsc")
 DEMAPPERS = ("soft", "hard")
+#: variant tokens of the JAX package's kernel that the port does not take,
+#: and why (ROADMAP, "Do not port")
+UNPORTED_VARIANTS = {
+    "bf16_acs": "it documents a lever the TPU closed; the card's ACS stays float32",
+    "cheap_bm": "a measurement-only ablation (its statistics are invalid)",
+    "static_noise": "a measurement-only ablation (its statistics are invalid)",
+    "cheap_enc": "a measurement-only ablation (its statistics are invalid)",
+    "no_tb": "a measurement-only ablation (its statistics are invalid)",
+}
 
 _TWO_PI = 2.0 * math.pi
 
@@ -108,6 +125,85 @@ def _dist_vec(tables, rxi: torch.Tensor, rxq: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
+@functools.lru_cache(maxsize=None)
+def _lin_terms(points: Tuple[Tuple[float, float], ...], inv_nd: float):
+    """The linear form's constants, as the JAX package's ``dist_vec_lin``
+    (fused_chain.py:207-246) derives them: per unique nonzero |I| and |Q|
+    coordinate the float32 factor ``-2 inv_nd |a|``, per point the float32
+    ``|p_e|^2 inv_nd`` (numpy float32 arithmetic, as there), and whether
+    the constellation is constant-modulus (then that term is dropped)."""
+    pts = np.asarray(points, dtype=np.float32)
+    fac_i = {a: np.float32(-2.0 * inv_nd * a) for a in {abs(float(x)) for x in pts[:, 0]} if a}
+    fac_q = {a: np.float32(-2.0 * inv_nd * a) for a in {abs(float(y)) for y in pts[:, 1]} if a}
+    pe2 = [float((pts[e, 0] ** 2 + pts[e, 1] ** 2) * inv_nd) for e in range(len(pts))]
+    const_mod = len({round(x, 12) for x in pe2}) == 1
+    return fac_i, fac_q, pe2, const_mod
+
+
+def _dist_vec_lin(tables, rxi: torch.Tensor, rxq: torch.Tensor) -> torch.Tensor:
+    """[..] received (I, Q) → [M, ..] linear-form distances (``fast_demap``):
+    ``(|p_e|^2 - 2 <rx, p_e>) inv_nd`` with the terms common to every e at
+    a position dropped (``|rx|^2``, and ``|p_e|^2`` where the constellation
+    is constant-modulus), so the ACS compares are unchanged in exact
+    arithmetic.  The JAX package's expression order: one product per
+    unique |coordinate|, then signed sums, hand-CSE'd across points."""
+    fac_i, fac_q, pe2, const_mod = _lin_terms(
+        tuple(map(tuple, tables.points_np.tolist())), tables.inv_nd)
+    pre_i = {a: rxi * torch.tensor(f) for a, f in fac_i.items()}
+    pre_q = {a: rxq * torch.tensor(f) for a, f in fac_q.items()}
+    memo = {}
+
+    def lin(pi, pq):
+        if (pi, pq) in memo:
+            return memo[(pi, pq)]
+        if (-pi, -pq) in memo:
+            v = -memo[(-pi, -pq)]
+        elif pi == 0.0:
+            v = pre_q[abs(pq)] if pq > 0 else -pre_q[abs(pq)]
+        elif pq == 0.0:
+            v = pre_i[abs(pi)] if pi > 0 else -pre_i[abs(pi)]
+        else:
+            ti, tq = pre_i[abs(pi)], pre_q[abs(pq)]
+            if pi > 0:
+                v = ti + tq if pq > 0 else ti - tq
+            else:
+                v = tq - ti if pq > 0 else -(ti + tq)
+        memo[(pi, pq)] = v
+        return v
+
+    out = []
+    for e, (px, py) in enumerate(tables.points_np.tolist()):
+        v = lin(px, py)
+        out.append(v if const_mod else v + torch.tensor(pe2[e], dtype=torch.float32))
+    return torch.stack(out)
+
+
+def lin_params(tables) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's form of :func:`_dist_vec_lin`, float32 [M] each: point
+    e's distance is ``(rxi * ci[e] + rxq * cq[e]) + pe2[e]``, with ``ci[e]
+    = sign(I_e) fac(|I_e|)`` (0 where I_e = 0), likewise ``cq``, and
+    ``pe2`` zero where the constellation is constant-modulus.  Each value
+    equals :func:`_dist_vec_lin`'s: negation is exact, so ``rxi * -f =
+    -(rxi * f)``, and the signed sums there are these sums reordered; a
+    zero term changes at most the sign of a zero, which no compare sees."""
+    fac_i, fac_q, pe2, const_mod = _lin_terms(
+        tuple(map(tuple, tables.points_np.tolist())), tables.inv_nd)
+    pts = tables.points_np
+    ci = np.array([np.sign(x) * fac_i.get(abs(float(x)), 0.0) for x in pts[:, 0]], np.float32)
+    cq = np.array([np.sign(y) * fac_q.get(abs(float(y)), 0.0) for y in pts[:, 1]], np.float32)
+    return ci, cq, np.zeros(len(pts), np.float32) if const_mod else np.float32(pe2)
+
+
+def parse_variant(variant: str) -> bool:
+    """Whether ``variant`` (comma-separated tokens) asks for the linear
+    demapper; any token other than ``fast_demap`` raises."""
+    tokens = {t for t in variant.split(",") if t}
+    for t in sorted(tokens - {"fast_demap"}):
+        why = UNPORTED_VARIANTS.get(t, "the JAX package has no such token")
+        raise ValueError(f"variant token {t!r} is not supported by the port: {why}")
+    return "fast_demap" in tokens
+
+
 def _snap(tables, dists: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest point by strict-less scan (first wins) → its (I, Q)."""
     pts = tables.points
@@ -139,13 +235,14 @@ def _check_args(code: Code, batch: int, Bt: int, channel: str, demapper: str) ->
 
 def mc_chain_viterbi_ref(code: Code, batch: int, nsteps: int, seed, param,
                          channel: str = "awgn", block_lanes: int = 1024,
-                         demapper: str = "soft", device="cpu"
+                         demapper: str = "soft", device="cpu", variant: str = ""
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`mc_chain_viterbi`: the same per-element
     expressions and draws as the kernel, as whole-tensor ops over every
     lane at once (stages in bulk, then the plain ACS scan and traceback)."""
     Bt = min(block_lanes, batch)
     _check_args(code, batch, Bt, channel, demapper)
+    dist_vec = _dist_vec_lin if parse_variant(variant) else _dist_vec
     device = torch.device(device)
     tables = code_tables(code, device)
     T, L, S = code.num_block_symbols, code.block_length, code.num_states
@@ -180,9 +277,9 @@ def mc_chain_viterbi_ref(code: Code, batch: int, nsteps: int, seed, param,
             theta = torch.tensor(_TWO_PI, dtype=torch.float32) * u1
             rxi = tables.points[syms, 0] + param_f * (r * torch.cos(theta))
             rxq = tables.points[syms, 1] + param_f * (r * torch.sin(theta))
-            dists = _dist_vec(tables, rxi, rxq)              # [M, T, B]
+            dists = dist_vec(tables, rxi, rxq)               # [M, T, B]
             if demapper == "hard":
-                dists = _dist_vec(tables, *_snap(tables, dists))
+                dists = dist_vec(tables, *_snap(tables, dists))
             dists = dists.permute(1, 0, 2)                   # [T, M, B]
         fm, dec = acs_scan(code, dists.contiguous(), init, hard)
         decoded = traceback_from(code, dec, first_argmin(fm, dim=0))  # [B, T]
@@ -203,9 +300,20 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _lib_lin():
+    """``fast_demap``'s instances, a library of their own
+    (``csrc/fused_chain_lin.cu``) that builds beside the exact one."""
+    lib = load_library("fused_chain_lin")
+    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.cc_mc_chain_lin.argtypes = [P, I, I, I, U, F, I, I, I, I, I, P, P, P, U, F, P, P, P, P]
+    lib.cc_mc_chain_lin.restype = I
+    return lib
+
+
 def mc_chain_viterbi(code: Code, batch: int, nsteps: int, seed, param,
                      channel: str = "awgn", block_lanes: int = 1024,
-                     demapper: str = "soft", device="cuda"
+                     demapper: str = "soft", device="cuda", variant: str = ""
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``nsteps`` whole Monte-Carlo steps of the Viterbi chain per lane.
 
@@ -214,28 +322,38 @@ def mc_chain_viterbi(code: Code, batch: int, nsteps: int, seed, param,
     hard decode with 0xFF00-saturating metrics).  ``block_lanes`` is the
     logical tile of the hash RNG (the reference's Pallas block).  Returns
     per-lane (bit_errors [B], frame_errors [B]) int32 counters; the run
-    simulates batch * nsteps * block_length info bits.
+    simulates batch * nsteps * block_length info bits.  ``variant``:
+    "" (the exact demapper) or "fast_demap" (the linear form, AWGN only;
+    no effect on the BSC); any other token raises ``ValueError``.
     """
     device = torch.device(device)
     if device.type == "cpu":
         return mc_chain_viterbi_ref(code, batch, nsteps, seed, param, channel,
-                                    block_lanes, demapper, device)
+                                    block_lanes, demapper, device, variant)
     if device.type != "cuda":
         raise ValueError(f"mc_chain_viterbi runs on CPU or CUDA, got {device}")
     Bt = min(block_lanes, batch)
     _check_args(code, batch, Bt, channel, demapper)
+    lin = parse_variant(variant)
     tables = code_tables(code, device)
     polys = np.asarray(tables.polynomials, dtype=np.uint32)
     out = torch.empty((2, batch), dtype=torch.int32, device=device)
+    head = (out.data_ptr(), batch, Bt, int(nsteps), int(seed) & MASK32, float(param))
+    code_args = (code.constraint_length, code.block_length, code.num_block_symbols,
+                 code.symlen_out, tables.esym_prev_np.ctypes.data,
+                 tables.points_np.ctypes.data, polys.ctypes.data, tables.quirk_mask,
+                 tables.inv_nd)
     with torch.cuda.device(device):
-        status = _lib().cc_mc_chain(
-            out.data_ptr(), batch, Bt, int(nsteps), int(seed) & MASK32, float(param),
-            flip_threshold(param) if channel == "bsc" else 0, int(channel == "bsc"),
-            int(demapper == "hard"), code.constraint_length,
-            code.block_length, code.num_block_symbols, code.symlen_out,
-            tables.esym_prev_np.ctypes.data, tables.points_np.ctypes.data,
-            polys.ctypes.data, tables.quirk_mask, tables.inv_nd,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if lin and channel == "awgn":
+            ci, cq, pe2 = lin_params(tables)
+            status = _lib_lin().cc_mc_chain_lin(
+                *head, int(demapper == "hard"), *code_args, ci.ctypes.data, cq.ctypes.data,
+                pe2.ctypes.data, stream)
+        else:
+            status = _lib().cc_mc_chain(
+                *head, flip_threshold(param) if channel == "bsc" else 0,
+                int(channel == "bsc"), int(demapper == "hard"), *code_args, stream)
     check_status(status, "mc_chain_viterbi")
     mc_chain_viterbi.launches += 1
     return out[0], out[1]

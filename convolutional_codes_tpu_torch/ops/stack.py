@@ -26,7 +26,10 @@ The alias corner — at capacity with every live metric equal, so best and
 worst are the same slot — keeps one clean input-0 extension, as the JAX
 Monte-Carlo kernel does (stack_pallas.py:190-201), not the C reference's
 double extension.  The JAX package's XLA decoder keeps the duplicate's bit
-row there instead; the corner has never been observed on real frames.
+row there instead (the same info bits).  Real frames meet it where a
+compat code's quirk zeroes both branches' symbols, so every path keeps the
+same metric (``tests/test_torch_fuzz.py``: the bits equal the JAX XLA
+decoder's, and the C oracle and the scalar spec part ways there).
 
 Decoded bits are kept unpacked, one uint8 per (frame, slot, symbol).  This
 is the plain version of the CUDA kernel in ``csrc/stack_mc.cu`` and the

@@ -36,6 +36,10 @@ from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.viterbi import (
     KERNEL_MAX_STATES, acs_scan, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import first_argmin
+
+#: Largest constellation the ACS kernel takes: 16 points, rate 1/4 (the
+#: JAX package's ACS kernels take any M; ``csrc/acs.cuh`` CC_DISPATCH16)
+KERNEL_MAX_POINTS = 16
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
 _P = ctypes.c_void_p
@@ -75,10 +79,10 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
 
 
 def _check_code(code: Code) -> None:
-    if code.num_states > KERNEL_MAX_STATES or code.points_per_symbol > 8:
+    if code.num_states > KERNEL_MAX_STATES or code.points_per_symbol > KERNEL_MAX_POINTS:
         raise ValueError(f"the CUDA Viterbi kernels take S <= {KERNEL_MAX_STATES} "
-                         f"and M <= 8; {code.name} has S={code.num_states}, "
-                         f"M={code.points_per_symbol}")
+                         f"and M <= {KERNEL_MAX_POINTS}; {code.name} has "
+                         f"S={code.num_states}, M={code.points_per_symbol}")
 
 
 def acs_forward_ref(code: Code, dists_tmb: torch.Tensor, init_sb: torch.Tensor,

@@ -15,7 +15,8 @@ blocks across a ``seq`` mesh axis — the overlap-save scheme of parallel
 block-based Viterbi decoding (the JAX package's ``parallel/streaming.py``):
 
   * each slot receives its block plus a ``warmup``-symbol halo on both
-    sides from its neighbours (``.to()`` between the slots' devices),
+    sides from its neighbours (``.to()`` between the slots of a process,
+    ``torch.distributed`` point-to-point between processes),
   * the left halo warms the path metrics up from a uniform start, so by
     the block's first real symbol they have converged to the monolithic
     decoder's metrics (up to a constant),
@@ -39,6 +40,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fused_longframe import mc_longframe_viterbi
@@ -94,6 +96,60 @@ def _pin_first_block_halo(dists_halo: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _comm_device(dev: torch.device) -> torch.device:
+    """Where a tensor goes through ``torch.distributed``: the host for gloo
+    (it moves no CUDA tensor point to point), the current card for NCCL."""
+    return torch.device("cpu") if dist.get_backend() == "gloo" else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def _exchange_halos(blocks, slots, rank: int, B: int, W: int, M: int):
+    """The JAX package's ``ppermute`` ring (streaming.py:106-115) over the
+    slots of a ``seq`` axis: slot i gets the last W symbols of slot i-1 (its
+    left halo; slot 0 pins its own instead) and the first W of slot i+1 (its
+    right halo; the last slot has none).  ``blocks`` holds this process's
+    slots' ``[B, Tl, M]`` blocks by slot index; ``slots`` is every slot's
+    (device, rank).  Between two slots of this process an edge moves with
+    ``.to()``, between processes by ``torch.distributed`` point-to-point
+    (one ``batch_isend_irecv`` of every transfer this process takes part in,
+    posted in the same order on every process).  Returns ({slot: left halo},
+    {slot: right halo}) for this process's slots."""
+    left, right, ops, landed = {}, {}, [], []
+    for j in range(len(slots) - 1):
+        # (source slot, destination slot, the edge's symbols, where it lands)
+        for tag, (src, dst, cut, into) in enumerate(
+                ((j, j + 1, slice(-W, None), left), (j + 1, j, slice(0, W), right)),
+                start=2 * j):
+            (src_dev, src_rank), (dst_dev, dst_rank) = slots[src], slots[dst]
+            if src_rank == rank and dst_rank == rank:
+                into[dst] = blocks[src][:, cut].to(dst_dev)
+            elif src_rank == rank:
+                edge = blocks[src][:, cut].contiguous().to(_comm_device(src_dev))
+                ops.append(dist.P2POp(dist.isend, edge, dst_rank, tag=tag))
+            elif dst_rank == rank:
+                buf = torch.empty((B, W, M), dtype=torch.float32, device=_comm_device(dst_dev))
+                ops.append(dist.P2POp(dist.irecv, buf, src_rank, tag=tag))
+                landed.append((into, dst, buf, dst_dev))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for into, dst, buf, dev in landed:
+        into[dst] = buf.to(dev)
+    return left, right
+
+
+def _gather_blocks(outs, slots, rank: int, Tl: int, B: int, out_dev) -> list:
+    """Every slot's ``[Tl, B]`` decoded bits on every process: each slot's
+    bits are broadcast from the process that decoded them."""
+    full = []
+    for i, (dev, owner) in enumerate(slots):
+        buf = (outs[i].to(_comm_device(dev)) if owner == rank else
+               torch.empty((Tl, B), dtype=torch.int32, device=_comm_device(dev)))
+        dist.broadcast(buf, src=owner)
+        full.append(buf.to(out_dev))
+    return full
+
+
 def streaming_viterbi_decode(code: Code, dists, mesh: Mesh, warmup: int = 128,
                              seq_axis: str = "seq") -> torch.Tensor:
     """Decode long soft-demapped frames sharded over time blocks.
@@ -109,11 +165,12 @@ def streaming_viterbi_decode(code: Code, dists, mesh: Mesh, warmup: int = 128,
     carry state starts the block's traceback; the last slot instead starts
     at its block's end.  Returns ``[B, T]`` int32 decoded bits (the K-1
     tail bits included) on ``dists``'s device.
+
+    Across processes every process passes the same ``dists`` and reads
+    from it only its own slots' blocks; the halos cross between processes
+    by point-to-point sends (:func:`_exchange_halos`), and every process
+    returns the whole ``[B, T]`` bits, as one process does.
     """
-    if mesh.world > 1:
-        raise NotImplementedError("streaming_viterbi_decode across processes: the halo "
-                                  "exchange between processes is not ported yet "
-                                  "(ROADMAP Q1 item 19)")
     d_all = torch.as_tensor(dists).to(torch.float32)
     D = mesh.shape[seq_axis]
     B, T, M = d_all.shape
@@ -122,15 +179,19 @@ def streaming_viterbi_decode(code: Code, dists, mesh: Mesh, warmup: int = 128,
     Tl, W = T // D, warmup
     if not 0 < W <= Tl:
         raise ValueError(f"warmup {W} must be in [1, {Tl}] (the block length)")
-    devs = [dev for dev, _ in mesh.slots((seq_axis,))]
-    blocks = [d_all[:, i * Tl:(i + 1) * Tl].to(dev) for i, dev in enumerate(devs)]
-    outs = []
-    for i, (dev, local) in enumerate(zip(devs, blocks)):
-        last = i == D - 1
-        # the halo exchange: the neighbours' edges move to this slot's device
-        left = (_pin_first_block_halo(local[:, :W]) if i == 0
-                else blocks[i - 1][:, Tl - W:].to(dev))
-        parts = [left, local] + ([] if last else [blocks[i + 1][:, :W].to(dev)])
+    if mesh.world > 1:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(f"the mesh spans {mesh.world} processes, but torch.distributed "
+                               "is not initialized (parallel.distributed.initialize_from_env)")
+    slots = mesh.slots((seq_axis,))
+    blocks = {i: d_all[:, i * Tl:(i + 1) * Tl].to(dev)
+              for i, (dev, rank) in enumerate(slots) if rank == mesh.rank}
+    lefts, rights = _exchange_halos(blocks, slots, mesh.rank, B, W, M)
+    outs = {}
+    for i, local in blocks.items():
+        dev, last = local.device, i == D - 1
+        left = _pin_first_block_halo(local[:, :W]) if i == 0 else lefts[i]
+        parts = [left, local] + ([] if last else [rights[i]])
         d_tmb = torch.cat(parts, dim=1).permute(1, 2, 0).contiguous()
         init = torch.zeros((code.num_states, B), dtype=torch.float32, device=dev)
         mid_m, dec_a = stream_acs_cuda(code, d_tmb[:W + Tl], init, False)
@@ -141,8 +202,12 @@ def streaming_viterbi_decode(code: Code, dists, mesh: Mesh, warmup: int = 128,
             _, start = stream_traceback_cuda(code, dec_b,
                                              first_argmin(end_m, dim=0).to(torch.int32))
         bits_tb, _ = stream_traceback_cuda(code, dec_a, start)
-        outs.append(bits_tb[W:])                  # [Tl, B]
-    return torch.cat([o.to(d_all.device) for o in outs], dim=0).T.contiguous()
+        outs[i] = bits_tb[W:]                     # [Tl, B]
+    if mesh.world > 1:
+        full = _gather_blocks(outs, slots, mesh.rank, Tl, B, d_all.device)
+    else:
+        full = [outs[i].to(d_all.device) for i in range(D)]
+    return torch.cat(full, dim=0).T.contiguous()
 
 
 def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,

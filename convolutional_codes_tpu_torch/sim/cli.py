@@ -69,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--checkpoint", type=str, default=None,
                         help="JSON checkpoint for resumable sweeps")
         sp.add_argument("--trace", type=str, default=None, metavar="DIR",
-                        help="per-point profiler traces (not ported yet)")
+                        help="one profiler trace a point under DIR/point_<p> "
+                             "(Chrome trace JSON; the card's kernels under CUDA)")
     return p
 
 
@@ -92,9 +93,6 @@ def parse_mesh(arg, device: str = "cuda"):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError("--trace: profiler traces are not ported yet "
-                                  "(ROADMAP Q1 item 15)")
     if not args.cpu and not torch.cuda.is_available():
         parser.error("no CUDA device is available; pass --cpu to run on the CPU")
     device = "cpu" if args.cpu else "cuda"
@@ -109,6 +107,7 @@ def main(argv=None) -> int:
         base_bits=8e8 * args.bits_scale,
         seed=args.seed,
         timeout_per_bit=getattr(args, "timeout_per_bit", 10000),
+        trace_dir=args.trace,
     )
     code = get_code(args.code)
     print(f"code {code.name}: K={code.constraint_length} "

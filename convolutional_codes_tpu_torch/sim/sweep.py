@@ -24,14 +24,22 @@ axis, each summed over ``frames`` (the sweep×frames grid); stack/Fano
 points run their lanes over every slot (``parallel/seq_grid.py``); the
 rest run one at a time over the ``frames`` axis.  Every leg derives its
 seeds as the serial leg does, so the grid legs give the serial legs'
-counters exactly.  Traces are not ported yet and raise.
+counters exactly.
+
+``trace_dir`` captures one profiler trace a point (``utils/profiling.py``)
+under ``trace_dir/point_<p>``, its work annotated ``sweep_point_<p>``, as
+the reference's sweep does; points that run side by side share one trace,
+written under each of their directories.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
+import os
+import shutil
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -47,6 +55,7 @@ from convolutional_codes_tpu_torch.parallel.montecarlo import (
     fused_mc_eligible, grid_accumulate_with_keys, per_device, sharded_accumulate)
 from convolutional_codes_tpu_torch.parallel.seq_grid import seq_mc_grid
 from convolutional_codes_tpu_torch.sim.chain import make_point_step, make_uncoded_step
+from convolutional_codes_tpu_torch.utils.profiling import annotate, trace
 
 #: Default Eb/N0 grid in dB (AWGN-channel/main.c:150-152).
 AWGN_SNR_GRID = (0.0, 2.0, 4.0, 6.0, 8.0, 10.0, 12.0, 14.0)
@@ -97,7 +106,7 @@ class SweepSpec:
     base_bits: float = 8e8                # tier base (reference default)
     seed: int = 0
     timeout_per_bit: int = FANO_TIMEOUT
-    trace_dir: Optional[str] = None       # profiler traces (not ported)
+    trace_dir: Optional[str] = None       # one profiler trace a point under it
 
     def resolve_code(self) -> Code:
         return self.code if isinstance(self.code, Code) else get_code(self.code)
@@ -229,6 +238,21 @@ def _load_checkpoint(path: str, spec_fp: str) -> dict:
     return {float(k): v for k, v in raw.items() if k != "__spec__"}
 
 
+@contextlib.contextmanager
+def point_traces(trace_dir: Optional[str], points: Sequence[float]):
+    """Annotate the enclosed work ``sweep_point_<p>`` for each of
+    ``points`` (run side by side) and, with ``trace_dir``, trace it under
+    ``trace_dir/point_<p>``: written under the first point's directory and
+    copied under the others'."""
+    dirs = [os.path.join(trace_dir, f"point_{p:g}") for p in points] if trace_dir else [None]
+    with trace(dirs[0]), contextlib.ExitStack() as names:
+        for p in points:
+            names.enter_context(annotate(f"sweep_point_{p:g}"))
+        yield
+    for d in dirs[1:]:
+        shutil.copytree(dirs[0], d, dirs_exist_ok=True)
+
+
 def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
               verbose: bool = True, device="cuda") -> List[PointRecord]:
     """Run the sweep on ``device`` or across ``mesh``, resumable via a JSON
@@ -236,9 +260,6 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
     state).  With a mesh, a chunk simulates ``frames`` axis size times the
     bits, and the pieces that run on one device run on the mesh's first
     slot."""
-    if spec.trace_dir:
-        raise NotImplementedError("profiler traces are not ported yet "
-                                  "(ROADMAP Q1 item 15)")
     code = spec.resolve_code()
     points = spec.resolve_points()
     device = torch.device(mesh.slots()[0][0] if mesh is not None else device)
@@ -336,19 +357,20 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
                 warm = np.zeros(Ds, np.int64)
                 t0 = tc = time.time()
                 ww = 0.0
-                for ci, n in chunks(nsteps):
-                    seeds = [[device_seed(_chunk_seed(spec.seed, it[0], ci), d)
-                              for d in range(ndev)] for it in batch]
-                    if use_fused:
-                        out = fused_grid_accumulate(code, n, seeds, prms, eff_frames, mesh,
-                                                    spec.channel, spec.demapper)
-                    else:
-                        out = grid_accumulate_with_keys(step, n, seeds, prms, mesh)
-                    tot += np.stack(out)
-                    if ci > 0:                      # chunk 0 pays the warm-up
-                        warm += out[2]
-                        ww += time.time() - tc
-                    tc = time.time()
+                with point_traces(spec.trace_dir, [it[1] for it in batch]):
+                    for ci, n in chunks(nsteps):
+                        seeds = [[device_seed(_chunk_seed(spec.seed, it[0], ci), d)
+                                  for d in range(ndev)] for it in batch]
+                        if use_fused:
+                            out = fused_grid_accumulate(code, n, seeds, prms, eff_frames,
+                                                        mesh, spec.channel, spec.demapper)
+                        else:
+                            out = grid_accumulate_with_keys(step, n, seeds, prms, mesh)
+                        tot += np.stack(out)
+                        if ci > 0:                      # chunk 0 pays the warm-up
+                            warm += out[2]
+                            ww += time.time() - tc
+                        tc = time.time()
                 wall = (time.time() - t0) / Ds       # side by side: amortised
                 for r, (i, point, param, _) in enumerate(batch):
                     finish_point(i, point, param, int(tot[0, r]), int(tot[1, r]),
@@ -372,8 +394,9 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
                 # no grouping of the slots divides the lanes: the first slot alone
                 batch, group = group[:max(R, 1)], group[max(R, 1):]
                 t0 = time.time()
-                outs = sequential_points(spec, code, [it[:3] for it in batch],
-                                         grid if R else one)
+                with point_traces(spec.trace_dir, [it[1] for it in batch]):
+                    outs = sequential_points(spec, code, [it[:3] for it in batch],
+                                             grid if R else one)
                 wall = (time.time() - t0) / len(batch)   # side by side: amortised
                 for (i, point, param, _), (be, fe, nb, wb, ww) in zip(batch, outs):
                     finish_point(i, point, param, be, fe, nb, wall, wb, ww)
@@ -382,24 +405,25 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
         t0 = tc = time.time()
         be = fe = nb = wb = 0
         ww = 0.0
-        for ci, n in chunks(nsteps):
-            seed_c = _chunk_seed(spec.seed, i, ci)
-            if use_fused:
-                cbe, cfe, cnb = fused_mc_accumulate(
-                    code, n, seed_c, param, eff_frames, frames_mesh, channel=spec.channel,
-                    demapper=spec.demapper, device=device)
-            elif frames_mesh is not None:
-                cbe, cfe, cnb = frames_accumulate(step, n, seed_c, param, frames_mesh)
-            else:
-                gen = torch.Generator(device=device).manual_seed(seed_c)
-                cbe, cfe, cnb = sharded_accumulate(step, n, gen, param)
-            be += cbe          # the counters are host ints: the device is done
-            fe += cfe
-            nb += cnb
-            if ci > 0:                          # chunk 0 pays the warm-up
-                wb += cnb
-                ww += time.time() - tc
-            tc = time.time()
+        with point_traces(spec.trace_dir, [point]):
+            for ci, n in chunks(nsteps):
+                seed_c = _chunk_seed(spec.seed, i, ci)
+                if use_fused:
+                    cbe, cfe, cnb = fused_mc_accumulate(
+                        code, n, seed_c, param, eff_frames, frames_mesh,
+                        channel=spec.channel, demapper=spec.demapper, device=device)
+                elif frames_mesh is not None:
+                    cbe, cfe, cnb = frames_accumulate(step, n, seed_c, param, frames_mesh)
+                else:
+                    gen = torch.Generator(device=device).manual_seed(seed_c)
+                    cbe, cfe, cnb = sharded_accumulate(step, n, gen, param)
+                be += cbe          # the counters are host ints: the device is done
+                fe += cfe
+                nb += cnb
+                if ci > 0:                          # chunk 0 pays the warm-up
+                    wb += cnb
+                    ww += time.time() - tc
+                tc = time.time()
         finish_point(i, point, param, be, fe, nb, time.time() - t0, wb, ww)
 
     return [records_by_idx[i] for i in sorted(records_by_idx)]

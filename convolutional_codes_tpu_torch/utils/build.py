@@ -8,8 +8,9 @@ include no PyTorch header, which keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that every
 product is rounded before it is added, as in the reference's C code; no
-fast-math.  ``fano_mc.cu``, ``fused_chain.cu``, ``longframe.cu``,
-``longframe_mc.cu`` and ``stack_mc.cu`` are also built with ``-Xptxas -v``, whose report
+fast-math.  ``fano_mc.cu``, ``fused_chain.cu``, ``fused_chain_lin.cu``,
+``longframe.cu``, ``longframe_mc.cu`` and ``stack_mc.cu`` are also built with
+``-Xptxas -v``, whose report
 (registers, stack frame, spills per kernel) is kept in ``build_log``
 (``EXTRA_FLAGS``).
 nvcc's messages are kept beside each library, ``lib<name>-<hash>.log``,
@@ -40,12 +41,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: default level it spilled 4 bytes in the S = 8, M = 4 instances to stay
 #: at 48 and 56 registers)
 EXTRA_FLAGS = {name: ("-Xptxas", "-v")
-               for name in ("fano_mc", "fused_chain", "longframe", "longframe_mc", "stack_mc")}
+               for name in ("fano_mc", "fused_chain", "fused_chain_lin", "longframe",
+                            "longframe_mc", "stack_mc")}
 EXTRA_FLAGS["fused_chain"] += ("-Xptxas", "--register-usage-level=0")
+EXTRA_FLAGS["fused_chain_lin"] += ("-Xptxas", "--register-usage-level=0")
 
 #: every kernel library of the package
-LIBRARIES = ("longframe", "fused_chain", "mc_datagen", "stack_mc", "fano_mc",
-             "longframe_mc")
+LIBRARIES = ("longframe", "fused_chain", "fused_chain_lin", "mc_datagen", "stack_mc",
+             "fano_mc", "longframe_mc")
 
 #: wall seconds each library took to build in this process (0 when cached)
 build_seconds = {}

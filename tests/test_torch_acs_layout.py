@@ -219,7 +219,7 @@ def pack_esym_table(code):
 
 
 def _esym_of(code, reg):
-    """fused_chain.cu's esym_of: from the packed table where it applies,
+    """fused_chain.cuh's esym_of: from the packed table where it applies,
     else by popcount with the compat quirk."""
     M, SL = code.points_per_symbol, code.symlen_out
     tab, packed = pack_esym_table(code)

@@ -74,3 +74,22 @@ def test_package_exports_the_reference_names():
         mod = importlib.import_module(f"convolutional_codes_tpu_torch.{sub}")
         assert set(mod.__all__) == (_reference_all(sub) - DO_NOT_PORT) | extra, sub
         assert all(callable(getattr(mod, name)) for name in mod.__all__), sub
+
+
+def test_oracle_and_profiling_load_no_jax():
+    """The port's C oracle (built and called) and its profiling hooks pull
+    in neither JAX nor the JAX package (whose copies of both import it)."""
+    code = ("import sys\n"
+            "from convolutional_codes_tpu_torch.utils import native, profiling\n"
+            "from convolutional_codes_tpu_torch.models.codebook import get_code\n"
+            "import numpy as np\n"
+            "if native.available():\n"
+            "    native.encode_blocks(get_code(0), np.zeros((1, 40), np.int8))\n"
+            "with profiling.trace(None), profiling.annotate('x'):\n"
+            "    pass\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'convolutional_codes_tpu')))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout

@@ -73,7 +73,7 @@ def test_streaming_decode_checks_its_shapes():
     with pytest.raises(ValueError, match="warmup"):
         st.streaming_viterbi_decode(code, d, mesh, warmup=251)
     two = Mesh(("seq",), mesh.devices, np.array([0, 0, 1, 1]), 0, 2)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(RuntimeError, match="not initialized"):   # a mesh of 2 processes
         st.streaming_viterbi_decode(code, d, two)
 
 

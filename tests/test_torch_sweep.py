@@ -102,10 +102,13 @@ def test_uncoded_sweep_closed_form():
     assert r.code == "uncoded-2bit" and r.decoder == "argmin"
 
 
-def test_unported_legs_raise():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_sweep(SweepSpec(points=[4.0], trace_dir="/nonexistent"), verbose=False,
-                  device="cpu")
+def test_unported_legs_raise(tmp_path):
+    """No leg raises any more: ``trace_dir`` writes a trace (profiling is
+    ported), and the stack/Fano steps of supplied symbols build for the
+    card."""
+    run_sweep(SweepSpec(points=[4.0], frames_per_step=64, bits_per_point=2e4,
+                        trace_dir=str(tmp_path)), verbose=False, device="cpu")
+    assert list((tmp_path / "point_4").glob("*.pt.trace.json"))
     for decoder in ("stack", "fano"):     # supplied-symbol decode on the card: kernels 9-10
         assert callable(make_point_step(get_code(0), "awgn", decoder, device="cuda"))
 
@@ -198,8 +201,10 @@ def test_cli_without_gpu_exits_nonzero(tmp_path):
     assert not (tmp_path / "x.jsonl").exists()
 
 
-def test_cli_unported_flags_raise():
+def test_cli_unported_flags_raise(tmp_path):
+    """A CPU mesh needs every axis size; ``--trace`` is ported and traces."""
     with pytest.raises(ValueError, match="every axis size"):
         cli.main(["awgn", "--cpu", "--mesh", "frames=-1"])
-    with pytest.raises(NotImplementedError):
-        cli.main(["awgn", "--cpu", "--trace", "/nonexistent"])
+    assert cli.main(["awgn", "--cpu", "--points", "4", "--frames", "64",
+                     "--bits-per-point", "2e4", "--trace", str(tmp_path)]) == 0
+    assert list((tmp_path / "point_4").glob("*.pt.trace.json"))
