@@ -146,6 +146,7 @@ C_CORE_SEQ_BITS_PER_S = {"stack": 1.4e5, "fano": 7.1e3}
 PUBLISHED_BER_8DB = 1.3756e-4    # results/awgn_channel.m, code 0 at 8 dB
 Z_MAX = 4.5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+SECTOR_BYTES = 32                # the least a read from device memory moves
 #: the times of kernels before their last redesign, at phase 5's shapes
 #: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
 #: kernels 2, 5 and 6, and kernels 1, 3 (ms per MC step; the headline in
@@ -237,25 +238,29 @@ def cuda_median_ms(fn, reps: int) -> float:
     return float(np.median([start.elapsed_time(end) for start, end in marks]))
 
 
-def print_ptxas(log: str) -> None:
+def print_ptxas(log: str, build: str = "fano_mc") -> None:
     """The ``-Xptxas -v`` report of the Fano kernels (kernels 8 and 10 for
-    each node storage): registers, stack frame and spills.  No instance may
-    spill, and kernel 10's keep a 0-byte stack frame.  Kernel 8's keep
-    exactly 32 bytes, the local array of sinf/cosf's reduction of huge
-    arguments (its datagen's Box-Muller; never taken, the angle is below
-    2 pi): a frame that grows fails."""
+    each node storage) of ``build``, ``fano_mc`` or its wide build
+    ``fano_mc_wide`` (codes of 5-8 coded bits a symbol): registers, stack
+    frame and spills.  No instance may spill, and kernel 10's keep a 0-byte
+    stack frame.  Kernel 8's keep exactly 32 bytes in ``fano_mc``, the local
+    array of sinf/cosf's reduction of huge arguments (its datagen's
+    Box-Muller; never taken, the angle is below 2 pi): a frame that grows
+    fails; in the wide build none or those 32 bytes."""
     import re
-    require(log, "no -Xptxas -v report of fano_mc.cu")
+    require(log, f"no -Xptxas -v report of {build}")
     instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
                            r"\S+\n\s*(.*?)\n.*?(Used \d+ registers)", log, re.S)
     require(len(instances) == 4, f"-Xptxas -v: {len(instances)} Fano kernel instances, want 4")
     for mangled, frame, regs in instances:
         kernel = re.search(r"(fano_mc_kernel|fano_decode_kernel)INS_\d+(\w+?Nodes)E", mangled)
-        print(f"ptxas: {kernel[1]}<{kernel[2]}>: {regs}, {frame}")
+        print(f"ptxas {build}: {kernel[1]}<{kernel[2]}>: {regs}, {frame}")
         require(frame.endswith("0 bytes spill stores, 0 bytes spill loads"),
-                f"{kernel[0]} spills: {frame}")
-        want = "32" if kernel[1] == "fano_mc_kernel" else "0"
-        require(frame.startswith(f"{want} bytes stack frame"), f"{kernel[0]}: {frame}")
+                f"{build} {kernel[0]} spills: {frame}")
+        want = (("32",) if build == "fano_mc" else ("0", "32")) if kernel[1] == "fano_mc_kernel" \
+            else ("0",)
+        require(any(frame.startswith(f"{w} bytes stack frame") for w in want),
+                f"{build} {kernel[0]}: {frame}")
 
 
 #: kernel 7's stack frame in bytes: the local array of sinf/cosf's reduction
@@ -265,14 +270,14 @@ def print_ptxas(log: str) -> None:
 STACK_MC_FRAME = 32
 
 
-def print_ptxas_stack(log: str) -> None:
-    """The ``-Xptxas -v`` report of ``stack_mc.cu``: kernels 7 and 9 for each
-    path-bit storage and node word, with registers, stack frame and
-    spills.  No instance may spill; kernel 9's keep a 0-byte stack frame and
-    kernel 7's either none or exactly STACK_MC_FRAME bytes: a frame that
-    grows fails."""
+def print_ptxas_stack(log: str, build: str = "stack_mc") -> None:
+    """The ``-Xptxas -v`` report of ``build``, ``stack_mc`` or its wide build
+    ``stack_mc_wide``: kernels 7 and 9 for each path-bit storage and node
+    word, with registers, stack frame and spills.  No instance may spill;
+    kernel 9's keep a 0-byte stack frame and kernel 7's either none or
+    exactly STACK_MC_FRAME bytes: a frame that grows fails."""
     import re
-    require(log, "no -Xptxas -v report of stack_mc.cu")
+    require(log, f"no -Xptxas -v report of {build}")
     instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
                            r"\S+\n\s*(.*?)\n.*?(Used \d+ registers)", log, re.S)
     require(len(instances) == 8, f"-Xptxas -v: {len(instances)} stack instances, want 8")
@@ -280,12 +285,13 @@ def print_ptxas_stack(log: str) -> None:
         k = re.search(r"(stack_mc_kernel|stack_decode_kernel)INS_\d+(Shared|Global)BitsELb([01])E",
                       mangled)
         require(k, f"unknown stack instance {mangled}")
-        print(f"ptxas: {k[1]}<bits {k[2].lower()}, {'packed' if k[3] == '1' else 'two'} node "
-              f"words>: {regs}, {frame}")
-        require(frame.endswith("0 bytes spill stores, 0 bytes spill loads"), f"{k[0]} spills: {frame}")
+        print(f"ptxas {build}: {k[1]}<bits {k[2].lower()}, {'packed' if k[3] == '1' else 'two'} "
+              f"node words>: {regs}, {frame}")
+        require(frame.endswith("0 bytes spill stores, 0 bytes spill loads"),
+                f"{build} {k[0]} spills: {frame}")
         allowed = (0, STACK_MC_FRAME) if k[1] == "stack_mc_kernel" else (0,)
         require(any(frame.startswith(f"{b} bytes stack frame") for b in allowed),
-                f"{k[0]}: {frame}")
+                f"{build} {k[0]}: {frame}")
 
 
 #: registers of one SM, the largest resident warps and blocks of one SM
@@ -1097,17 +1103,42 @@ def check_longframe_lanes(torch, dev, stats):
 #: phase 3's random user codes: (K, symlen, parity) of each draw, the rest
 #: (polynomials with the top bit set, block length 8-48 with one at 8,
 #: stack/Fano metrics and weights) drawn from RANDOM_CODE_SEED.  K covers
-#: every S of CC_DISPATCH (4 .. 256), symlen 2-4, both parity modes with
+#: every S of CC_DISPATCH (4 .. 256), symlen 2-8, both parity modes with
 #: compat at K >= 5 (the quirk's register bits), and (S, M) pairs no
-#: registered code uses (S = 128 with M = 8, S = 256 with M = 16)
+#: registered code uses (S = 128 with M = 8, S = 256 with M = 16, S = 64
+#: with M = 32, S = 128 with M = 256; the last two with WIDE_BITS'
+#: constellations)
 RANDOM_CODE_PLAN = [(3, 3, "true"), (4, 4, "compat"), (5, 2, "compat"), (6, 3, "compat"),
-                    (7, 4, "true"), (8, 3, "compat"), (9, 2, "true"), (9, 4, "compat")]
+                    (7, 4, "true"), (8, 3, "compat"), (9, 2, "true"), (9, 4, "compat"),
+                    (7, 5, "compat"), (8, 8, "true")]
 RANDOM_CODE_SEED = 2610
 #: the big-K code of the check (kernels 9-10): K 28-32, rate 1/2
 RANDOM_BIG_K_SEED = 2611
 #: kernels 7-8's points in the check, 256 lanes x 1 frame (the plain stack
 #: machine has no budget: clean points keep its walks short)
 RANDOM_SEQ_POINTS = (("bsc", 0.01), ("awgn", 8.0))
+
+
+#: symbol widths beyond the registered constellations (1-4 bits) that the
+#: checks register rect_points for, as a user of codes of rate 1/5 to 1/8
+#: would register their own
+WIDE_BITS = (5, 8)
+
+
+def rect_points(bits: int):
+    """A rectangular 2^ceil(b/2) x 2^floor(b/2) grid of unit average power
+    (float32 [2^b, 2])."""
+    nx, ny = 1 << ((bits + 1) // 2), 1 << (bits // 2)
+    pts = np.array([(x, y) for x in np.arange(nx) * 2 - (nx - 1)
+                    for y in np.arange(ny) * 2 - (ny - 1)], np.float64)
+    return (pts / np.sqrt((pts ** 2).sum(1).mean())).astype(np.float32)
+
+
+def register_wide_constellations() -> None:
+    """Register rect_points for WIDE_BITS in the port (where not yet)."""
+    from convolutional_codes_tpu_torch.models import constellations
+    for bits in WIDE_BITS:
+        constellations.register_constellation(bits, rect_points(bits), overwrite=True)
 
 
 def random_codes():
@@ -1205,7 +1236,9 @@ def check_random_codes(torch, dev, stats):
     against the plain streaming decode on terminated streams, kernels 3, 6,
     7 and 8 against their plain versions (BSC counters exact, AWGN lanes
     that differ counted; 0 expected).  A kernel is skipped only where the
-    JAX package's counterpart refuses the code too."""
+    JAX package's counterpart refuses the code too: kernel 3 above 8
+    points (``fused_mc_eligible``).  The codes of 5 and 8 coded bits a
+    symbol run with WIDE_BITS' constellations registered."""
     from convolutional_codes_tpu_torch.models.trellis import quirk_mask_low
     from convolutional_codes_tpu_torch.ops import fano_cuda, fano_mc, stack_mc
     from convolutional_codes_tpu_torch.ops import fused_chain as fc
@@ -1220,6 +1253,7 @@ def check_random_codes(torch, dev, stats):
 
     require(native.available(), "the C oracle does not build (gcc)")
     t_all = time.time()
+    register_wide_constellations()
     codes = random_codes()
     frames = [oracle_frames(c, 512, c.constraint_length + 7 * c.points_per_symbol)
               for c in codes]
@@ -1286,19 +1320,22 @@ def check_random_codes(torch, dev, stats):
                     f"alias corner, ROADMAP Q3); 10 = oracle (timeouts at 1000 a bit: "
                     f"{int(ft.sum())} hard)")
         sigma, p = float(awgn_sigma(4.0)), 0.03
-        # kernels 3 and 6: S <= 256 and M <= 8, as the JAX package's fused_mc_eligible
+        # kernel 3: S <= 256 and M <= 8, as the JAX package's fused_mc_eligible
+        # (wider codes take the modular chain, kernels 1-2, there as here);
+        # kernel 6: S <= 256, any M, as the JAX package's kernel
         if S > fc.MAX_STATES:
             done.append(f"1-6 skipped: S = {S} (the JAX package's Viterbi kernels take S <= 256)")
-        elif M <= fc.MAX_POINTS:
+        else:
             for ch, prm in (("bsc", p), ("awgn", sigma)):
-                kw = dict(channel=ch, block_lanes=1024, device=dev)
-                e, f = fc.mc_chain_viterbi(code, 8192, 2, 17, prm, **kw)
-                e_r, f_r = fc.mc_chain_viterbi_ref(code, 8192, 2, 17, prm, **kw)
-                lanes = int(((e != e_r) | (f != f_r)).sum())
-                require(lanes == 0 if ch == "bsc" else lanes <= 8192 // 100,
-                        f"{code.name}: kernel 3 {ch}, {lanes} lanes differ")
-                stats["mc_chain"] = max(stats["mc_chain"], float((e - e_r).abs().max()))
-                done.append(f"3 {ch} {lanes}/8192 lanes off ({int(e.sum())} bit errors)")
+                if M <= fc.MAX_POINTS:
+                    kw = dict(channel=ch, block_lanes=1024, device=dev)
+                    e, f = fc.mc_chain_viterbi(code, 8192, 2, 17, prm, **kw)
+                    e_r, f_r = fc.mc_chain_viterbi_ref(code, 8192, 2, 17, prm, **kw)
+                    lanes = int(((e != e_r) | (f != f_r)).sum())
+                    require(lanes == 0 if ch == "bsc" else lanes <= 8192 // 100,
+                            f"{code.name}: kernel 3 {ch}, {lanes} lanes differ")
+                    stats["mc_chain"] = max(stats["mc_chain"], float((e - e_r).abs().max()))
+                    done.append(f"3 {ch} {lanes}/8192 lanes off ({int(e.sum())} bit errors)")
                 kw = dict(channel=ch, window=256, warmup=64, device=dev)
                 be, we = fl.mc_longframe_viterbi(code, 1024, 2, 17, prm, **kw)
                 be_r, we_r = fl.mc_longframe_viterbi_ref(code, 1024, 2, 17, prm, **kw)
@@ -1308,9 +1345,9 @@ def check_random_codes(torch, dev, stats):
                 stats["mc_longframe"] = max(stats["mc_longframe"], float(
                     (be - be_r).abs().max()))
                 done.append(f"6 {ch} {lanes}/1024 off ({int(be.sum())})")
-        else:
-            done.append(f"3 and 6 skipped: M = {M} > 8 (the JAX package's fused_mc_eligible "
-                        "refuses M > 8 for kernel 3; kernel 6: ROADMAP Q3)")
+            if M > fc.MAX_POINTS:
+                done.append(f"3: M = {M} > 8 takes the modular chain (kernels 1-2), as the JAX "
+                            "package's fused_mc_eligible sends it")
         # kernels 7-8: per lane against the plain machine on the kernel's own
         # frames (exact), and the plain datagen's counters (BSC: exact)
         for decoder, mc, ref in (("stack", stack_mc.mc_stack, stack_mc.mc_stack_ref),
@@ -1938,9 +1975,12 @@ def mc_chain_ops_per_symbol(code, lin: bool = False) -> float:
 #: place), its metric (soft: a read, a product, an add; hard: a read and 5),
 #: the two slots written (two metric adds, two node words, four stores, the
 #: capacity test: 12), and per word of the path copied a read, an or and a
-#: write
+#: write.  A wide code's Monte-Carlo walk (symlen 5-8) keeps the received
+#: point, so each branch also computes its distance to the expected point
+#: (two reads, two subtracts, two products, an add, the scale: 8)
 STACK_OPS = {"pick_group": 8, "pick": 6, "pick_slot": 7, "node": 6, "branch": 2,
-             "coded_bit": 4, "soft_metric": 3, "hard_metric": 6, "write": 12, "path_word": 3}
+             "coded_bit": 4, "soft_metric": 3, "hard_metric": 6, "write": 12, "path_word": 3,
+             "wide_distance": 8}
 #: slots of a stack walk, and of one group of its pick
 STACK_DEPTH, STACK_GROUP = 64, 8
 
@@ -1966,8 +2006,11 @@ def datagen_ops_per_symbol(code, channel: str) -> float:
     encoder register and expected symbol (5); on AWGN two uniforms,
     Box-Muller (as kernel 3's) and per point a distance (6), its metric
     (product, add) and its store; on BSC a uniform and a compare per coded
-    bit and per point a hard metric (5) and its store."""
-    o, M = LANE_OPS, code.points_per_symbol
+    bit and per point a hard metric (5) and its store.  A wide code's walk
+    keeps the received row and computes no per-point term (stack_ops counts
+    its branches' distances)."""
+    from convolutional_codes_tpu_torch.ops.sequential_common import is_wide
+    o, M = LANE_OPS, (0 if is_wide(code) else code.points_per_symbol)
     ops = o["hash"] + 1 + 5
     if channel == "awgn":
         return ops + 2 * (o["hash"] + o["uniform"]) + o["transcendentals"] + 10 + 9 * M
@@ -1979,8 +2022,11 @@ def stack_ops(code, channel: str, iters, frames: int, mc: bool) -> float:
     ``iters`` iterations (each entry ``frames`` walks); with ``mc`` also
     each frame's datagen and the count of its bit errors (a hash, a mask,
     a compare and an add per info bit)."""
+    from convolutional_codes_tpu_torch.ops.sequential_common import is_wide
     o = STACK_OPS
     metric = o["soft_metric"] if channel == "awgn" else o["hard_metric"]
+    if mc and channel == "awgn" and is_wide(code):
+        metric += o["wide_distance"]
     per_iter = (o["node"] + 2 * (o["branch"] + o["coded_bit"] * code.symlen_out + metric)
                 + o["write"] + o["path_word"] * -(-code.block_length // 32))
     ops = stack_pick_ops(iters, frames) + per_iter * float(iters.sum())
@@ -2557,6 +2603,195 @@ def sequential_times(torch, dev, ref_path) -> None:
     print(f"  outputs of kernels 7, 8 and 10 equal to {ref_path}'s")
 
 
+def wide_code():
+    """K = 7, rate 1/8 (256 points, WIDE_BITS' constellation): nasa-k7's
+    polynomials and six more, for the times of the kernels' large-M paths.
+    Its sequential metrics suit rate 1/8, as the registered codes' suit
+    theirs: hard (1, -7), the ratio of Fano's bit metrics log2(2(1-p)) - R
+    and log2(2p) - R at p = 0.01 (0.86 : -5.77); soft weight -0.25, so that
+    the correct path's 1 + w * dist stays positive in expectation at the
+    12 dB of measure_wide (E[dist] = 2 sigma^2 / ndist = 2.68 there)."""
+    from convolutional_codes_tpu_torch.models.codebook import Code
+    return Code(name="k7-r18", symlen_out=8, constraint_length=7, block_length=40,
+                polynomials=(0o171, 0o133, 0o165, 0o117, 0o127, 0o155, 0o135, 0o147),
+                bit_metrics=(1, -7), fano_bit_metrics=(1, -7), metric_weight=-0.25,
+                fano_metric_weight=-0.25)
+
+
+def used_columns(code) -> int:
+    """Distinct expected symbols of the code's transitions: the columns of
+    M distances a trellis step reads (at most 2S)."""
+    from convolutional_codes_tpu_torch.models.tables import code_tables
+    return len(np.unique(code_tables(code).esym_prev_np))
+
+
+#: kernel 4 at M = 256 (wide_code, soft): frames and steps
+LARGE_M_STREAM = (128, 16384)
+#: kernel 6 at M = 256 (wide_code): config 2's lanes, windows and point
+LARGE_M_LONGFRAME = (65536, 2, "awgn", 6.0)
+
+
+def wide_stream_acs(torch, dev):
+    """Kernel 4 at M = 256 (LARGE_M_STREAM): (run, its inputs)."""
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops.viterbi import BIG_METRIC
+    code = wide_code()
+    B, T = LARGE_M_STREAM
+    g = torch.Generator(device=dev).manual_seed(9)
+    d = torch.rand((T, code.points_per_symbol, B), generator=g, device=dev) * 8.0
+    init = torch.full((code.num_states, B), BIG_METRIC, device=dev)
+    init[0] = 0.0
+    return (lambda: lc.stream_acs_cuda(code, d, init, False)), (d, init)
+
+
+def wide_longframe(dev):
+    """Kernel 6 at M = 256 (LARGE_M_LONGFRAME): run(seed)."""
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    code = wide_code()
+    lanes, windows, channel, point = LARGE_M_LONGFRAME
+    param = float(awgn_sigma(point)) if channel == "awgn" else point
+    return lambda seed: fl.mc_longframe_viterbi(code, lanes, windows, seed, param,
+                                                channel=channel, device=dev)
+
+
+def walk_read_bytes(iters, code, decoder: str) -> float:
+    """Bytes that kernel 9 or 10 must move on [B, T, M] frames whose walks
+    took ``iters`` iterations: per iteration the two branches' distances,
+    each in a sector of SECTOR_BYTES, but no more than a frame's T x M
+    floats; and per frame its bits, metric and iterations (and Fano's
+    timeout_left and depth) written once."""
+    T, M, L = code.num_block_symbols, code.points_per_symbol, code.block_length
+    reads = float(iters.double().mul(2 * SECTOR_BYTES).clamp(max=T * M * 4).sum())
+    return reads + iters.numel() * (L * 4 + 4 + 8 + (8 if decoder == "fano" else 0))
+
+
+def measure_wide(torch, dev, card, clock) -> None:
+    """The kernels' paths for codes of 32-256 points at wide_code (rate
+    1/8, S = 64, M = 256), each beside its bound: kernel 1 (16,384 blocks)
+    and kernel 4 (LARGE_M_STREAM) equal to their plain versions, kernel 6
+    (LARGE_M_LONGFRAME) at most 1% of lanes off the plain version on 1024
+    lanes, kernels 7-8 (8192 lanes x 1, AWGN 12 dB) per lane equal to
+    mc_stack_ref / mc_fano_ref on 256 lanes, and kernels 9-10 (16,384
+    chain frames, AWGN 12 dB) equal to the plain machines on their first
+    256 frames; the Fano checks at a budget of 100 a bit, so that no plain
+    walk runs for minutes.  The walks' iterations a bit and largest walk
+    are printed beside the budget.  Bounds as the rest of phase 5: bytes
+    once at HBM_BYTES_PER_S (kernels 1, 4: the step's used_columns of the
+    M distances; kernels 9-10 walk_read_bytes), lane-operations (8 S a
+    step; kernel 6 longframe_instr_per_symbol; the walks their
+    iterations), the larger of the two."""
+    from convolutional_codes_tpu_torch.ops import fano_cuda, fano_mc, stack_cuda, stack_mc
+    from convolutional_codes_tpu_torch.ops import fused_longframe as fl
+    from convolutional_codes_tpu_torch.ops import longframe_cuda as lc
+    from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
+    from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
+    from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
+    from convolutional_codes_tpu_torch.ops.viterbi import BIG_METRIC
+    from convolutional_codes_tpu_torch.sim.chain import chain_frames
+
+    t_all = time.time()
+    register_wide_constellations()
+    code = wide_code()
+    S, M, T = code.num_states, code.points_per_symbol, code.num_block_symbols
+    cols, rate = used_columns(code), SMS * LANE_SLOTS_PER_SM * clock
+    print(f"large-M paths on {code.name} (S={S}, M={M}, {cols} columns a step) [{card}]")
+    # kernel 1: the modular chain's ACS on 16,384 blocks
+    B = 16384
+    g = torch.Generator(device=dev).manual_seed(8)
+    d = torch.rand((T, M, B), generator=g, device=dev) * 8.0
+    init = torch.full((S, B), BIG_METRIC, device=dev)
+    init[0] = 0.0
+    run = lambda: vc.acs_forward_cuda(code, d, init, False)
+    require(all(torch.equal(a, w) for a, w in zip(run(), vc.acs_forward_ref(code, d, init,
+                                                                            False))),
+            "kernel 1 at M = 256 differs from the plain version")
+    ms = cuda_ms(run, 20)
+    nbytes = 4 * B * (T * cols + 2 * S + T * ((S + 31) // 32))
+    ops = 8 * S * T * B / rate
+    print(f"  kernel 1: B={B} T={T}: {ms:.4f} ms; bound "
+          f"{max(nbytes / HBM_BYTES_PER_S, ops) * 1e3:.4f} ms (bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, ops {ops * 1e3:.4f}); equal to the plain version")
+    del d, init
+    # kernel 4: long frames
+    run, (d, init) = wide_stream_acs(torch, dev)
+    Bw, Tw = LARGE_M_STREAM
+    d2 = d[:2049].contiguous()
+    require(all(torch.equal(a, w) for a, w in zip(lc.stream_acs_cuda(code, d2, init, False),
+                                                  lc.stream_acs_ref(code, d2, init, False))),
+            "kernel 4 at M = 256 differs from the plain version")
+    run()
+    ms = cuda_ms(run, 5)
+    nbytes = 4 * Bw * (Tw * cols + 2 * S + Tw * ((S + 31) // 32))
+    ops = 8 * S * Tw * Bw / rate
+    print(f"  kernel 4: B={Bw} T={Tw}: {ms:.4f} ms; bound "
+          f"{max(nbytes / HBM_BYTES_PER_S, ops) * 1e3:.4f} ms (bytes "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, ops {ops * 1e3:.4f}); equal to the plain "
+          "version on 2,049 steps")
+    del d, d2, init
+    # kernel 6: the long-frame chain at config 2's lanes
+    run = wide_longframe(dev)
+    lanes, windows, channel, point = LARGE_M_LONGFRAME
+    param = float(awgn_sigma(point))
+    be, we = fl.mc_longframe_viterbi(code, 1024, 1, 31, param, channel=channel, device=dev)
+    be_r, we_r = fl.mc_longframe_viterbi_ref(code, 1024, 1, 31, param, channel=channel,
+                                             device=dev)
+    off = int(((be != be_r) | (we != we_r)).sum())
+    require(off <= 1024 // 100, f"kernel 6 at M = 256: {off} of 1024 lanes differ")
+    run(100)
+    ms = cuda_ms(lambda: run(101), 2)
+    Tw6 = 1920 + 2 * 128
+    ops = lanes * windows * Tw6 * longframe_instr_per_symbol(code, channel) / rate
+    print(f"  kernel 6: {channel} {point:g} dB, {lanes} lanes x {windows} windows: {ms:.3f} ms "
+          f"({lanes * windows * 1920 / ms * 1e3:.4e} info bits/s); bound {ops * 1e3:.3f} ms "
+          f"(ops, est.); {off}/1024 lanes off the plain version")
+    # kernels 7-8 and 9-10
+    sigma, L, budget = float(awgn_sigma(12.0)), code.block_length, FANO_TIMEOUT * T
+    for name, mc, ref in (("7 stack", stack_mc.mc_stack, stack_mc.mc_stack_ref),
+                          ("8 Fano", fano_mc.mc_fano, fano_mc.mc_fano_ref)):
+        kw = {} if name[0] == "7" else {"timeout_per_bit": 100}
+        got = mc(code, 256, 1, 41, sigma, device=dev, **kw)
+        want = ref(code, 256, 1, 41, sigma, device=dev, **kw)
+        require(torch.equal(got, want), f"kernel {name} at M = 256 differs from its plain "
+                f"version on {int((got != want).any(0).sum())} of 256 lanes")
+        out = mc(code, 8192, 1, 41, sigma, device=dev)
+        ms = cuda_ms(lambda: mc(code, 8192, 1, 42, sigma, device=dev), 2)
+        bound = iteration_bound_ms("mc_stack" if name[0] == "7" else "mc_fano", out[2].cpu(),
+                                   clock, code)
+        print(f"  kernel {name}: AWGN 12 dB, 8192 lanes x 1: {ms:.3f} ms "
+              f"({8192 * L / ms * 1e3:.4e} info bits/s), {int(out[2].sum())} iterations "
+              f"({float(out[2].sum()) / (8192 * L):.3f} a bit, largest walk "
+              f"{int(out[2].max())} of the Fano budget {budget}); bound {bound:.4f} ms (ops); "
+              f"{int(out[0].sum())} bit errors; equal to the plain version on 256 lanes")
+    _, d = chain_frames(code, "awgn", B, torch.Generator(device=dev).manual_seed(43), sigma)
+    head = d[:256].contiguous()
+    for name, decoder, run, check in (
+            ("9 stack", "stack", lambda: stack_cuda.stack_machine_cuda(code, d, True),
+             lambda: stack_cuda.stack_machine_cuda(code, head, True)),
+            ("10 Fano", "fano", lambda: fano_cuda.fano_decode_cuda(code, d, True, FANO_TIMEOUT,
+                                                                   with_diag=True),
+             lambda: fano_cuda.fano_decode_cuda(code, head, True, 100, with_diag=True))):
+        got = check()
+        got = (got[0], {"metric": got[1], "iters": got[2]}) if decoder == "stack" else got
+        bad, _ = supplied_diff(torch, got, decode_plain(decoder, code, head, True, 100))
+        require(not bad, f"kernel {name} at M = 256: {bad} differ from the plain machine")
+        got = run()
+        iters = (got[2] if decoder == "stack" else got[1]["iters"]).cpu()
+        ms = cuda_ms(run, 5)
+        bytes_ms = walk_read_bytes(iters, code, decoder) / HBM_BYTES_PER_S * 1e3
+        ops_ms = (stack_ops(code, "awgn", iters, 1, False) if decoder == "stack"
+                  else float(iters.sum()) * INSTR_PER_ITER["fano_decode"]) / rate * 1e3
+        print(f"  kernel {name}: AWGN 12 dB, B={B}: {ms:.4f} ms "
+              f"({B * L / ms * 1e3:.4e} info bits/s of decode), {int(iters.sum())} iterations "
+              f"({float(iters.sum()) / (B * L):.3f} a bit, largest walk {int(iters.max())}); "
+              f"bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; bytes {bytes_ms:.4f} ms "
+              f"read by the walks, operations {ops_ms:.4f} ms); equal to the plain machine "
+              "on 256 frames")
+    del d, head
+    print(f"large-M paths measured [{time.time() - t_all:.1f} s]")
+
+
 def kernel_times(torch, dev, card, ref_path=None) -> None:
     """Kernels 1, 3, 4 and 6-10 of the package first on sys.path at phase
     5's shapes, device milliseconds (CUDA events, mean of warm launches) on
@@ -2623,6 +2858,20 @@ def kernel_times(torch, dev, card, ref_path=None) -> None:
         print(f"  kernel 6: {code.name} {channel}, {lanes} lanes x {windows} windows: "
               f"{cuda_ms(run, 3):.3f} ms per launch")
     sequential_times(torch, dev, ref_path)
+    if vc.KERNEL_MAX_POINTS < 256:
+        print("  kernels 4 and 6 at M = 256: this tree refuses codes of more than "
+              f"{vc.KERNEL_MAX_POINTS} points")
+        return
+    register_wide_constellations()
+    run, _ = wide_stream_acs(torch, dev)
+    run()
+    B, T = LARGE_M_STREAM
+    print(f"  kernel 4: {wide_code().name} (M=256) soft B={B} T={T}: {cuda_ms(run, 5):.4f} ms")
+    run = wide_longframe(dev)
+    run(100)
+    lanes, windows, channel, _ = LARGE_M_LONGFRAME
+    print(f"  kernel 6: {wide_code().name} (M=256) {channel}, {lanes} lanes x {windows} "
+          f"windows: {cuda_ms(lambda: run(100), 3):.3f} ms per launch")
 
 
 def main() -> int:
@@ -2671,8 +2920,10 @@ def main() -> int:
         build.build_all()
         for name in build.LIBRARIES:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
-        print_ptxas(build.build_log.get("fano_mc", ""))
-        print_ptxas_stack(build.build_log.get("stack_mc", ""))
+        for name in ("fano_mc", "fano_mc_wide"):
+            print_ptxas(build.build_log.get(name, ""), name)
+        for name in ("stack_mc", "stack_mc_wide"):
+            print_ptxas_stack(build.build_log.get(name, ""), name)
         print_ptxas_longframe(build.build_log)
         sass = read_sass(build)
 
@@ -2751,6 +3002,7 @@ def main() -> int:
         measure_longframe_wide(torch, dev, card, fl, True)
         measure_traceback_crossover(torch, dev, card)
         compare_fano_plans(torch, dev, card)
+        measure_wide(torch, dev, card, clock)
 
     require("jax" not in sys.modules, "the port imported JAX")
     ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "convolutional_codes_tpu")

@@ -65,6 +65,37 @@ __device__ __forceinline__ void acs_step_smem(const float (&src)[S], float (&dst
   }
 }
 
+// The same step with each transition's branch metric bm(e) computed where
+// it is read (kernel 6 for M = 16-256, whose column of M metrics a thread
+// would not fit in shared memory): bm is a function of the expected symbol
+// that gives the float the column would hold.
+template <int S, class BM>
+__device__ __forceinline__ void acs_step_fn(const float (&src)[S], float (&dst)[S], BM bm,
+                                            bool hard, const TrellisTables& tt,
+                                            unsigned (&words)[(S + 31) / 32]) {
+  constexpr int NW = (S + 31) / 32;
+  constexpr int PER = S < 32 ? S : 32;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    unsigned word = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int ns = w * 32 + i;
+      const int j = ns & (S / 2 - 1);
+      float c0 = src[2 * j] + bm((unsigned)tt.esym0[ns]);
+      float c1 = src[2 * j + 1] + bm((unsigned)tt.esym1[ns]);
+      if (hard) {
+        c0 = fminf(c0, CC_HARD_SAT);
+        c1 = fminf(c1, CC_HARD_SAT);
+      }
+      const bool d = c1 < c0;
+      dst[ns] = d ? c1 : c0;
+      word |= (unsigned)d << i;
+    }
+    words[w] = word;
+  }
+}
+
 // First state with the least metric (strict-less scan from state 0).
 template <int S>
 __device__ __forceinline__ unsigned argmin_state(const float (&m)[S]) {
@@ -135,6 +166,10 @@ static inline unsigned long long pack_esym_table(int K, int symlen, const unsign
     case 256: BY_M(256, M, LAUNCH); break;             \
     default: return cudaErrorInvalidValue;             \
   }
+
+// Calls FN<S, 0>(args...), the instance for M given at run time, for a
+// runtime S in {2..256} (the kernels' path for large M).
+#define CC_DISPATCH_RUNTIME_M(S_, M, LAUNCH) LAUNCH(S_, 0)
 
 #define CC_DISPATCH(S, M, LAUNCH) CC_DISPATCH_S(S, M, LAUNCH, CC_DISPATCH_M)
 #define CC_DISPATCH16(S, M, LAUNCH) CC_DISPATCH_S(S, M, LAUNCH, CC_DISPATCH_M16)

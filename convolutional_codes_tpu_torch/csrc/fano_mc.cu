@@ -59,7 +59,10 @@
 //    instead of computing it (staging the table in shared memory would
 //    halve the walks an SM holds).  Kernel 10 computes its metrics at each
 //    step from the supplied frame where it lies, in its own [B][T][M]
-//    layout.
+//    layout.  Codes of 5-8 coded bits a symbol run the wide build of this
+//    file (fano_mc_wide, sequential.cuh's CC_SEQ_WIDE), whose kernel 8
+//    keeps a frame's T received rows instead of a table 8-64 times larger
+//    and computes each metric from them (RowMetrics).
 //  * A queue of frames.  The grid is persistent (SMs x resident blocks);
 //    a lane whose walk has stopped takes the next frame with an atomicAdd
 //    on a counter the caller zeroes, so a slow frame no longer idles its
@@ -241,7 +244,11 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
   c.set(0xffffffffu);
   const Nodes n = Nodes::make(nodes, T, c.lane);
   const Encoder enc = Encoder::make(p.s);
+#if CC_SEQ_WIDE
+  const RowMetrics m = {&p, reinterpret_cast<const float2*>(slot_table(tables, T, 2, c.lane))};
+#else
   const TableMetrics m = {slot_table(tables, T, M, c.lane), (unsigned)M};
+#endif
   const size_t lanes = (size_t)p.lanes;
   unsigned f = frames;   // the frame being walked; none yet
   Walk w;
@@ -278,7 +285,11 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
         if (c.lane == j) break;
         continue;
       }
+#if CC_SEQ_WIDE
+      crew_gen_wide(p, c, p.gid0 + next, reinterpret_cast<float2*>(slot_table(tables, T, 2, j)));
+#else
       crew_gen(p, c, p.gid0 + next, slot_table(tables, T, M, j));
+#endif
       __syncwarp(c.alive);
       if (c.lane == j) fano_start(w, n, m, enc, p.timeout);
     }
@@ -402,12 +413,15 @@ int cc_fano_occupancy(int mc, int shared, int threads, int smem, int* info) {
 // to out's lanes 0 .. lanes-1.
 // out [3, lanes] int64, zeroed; queue one uint32, zeroed; nodes: blocks *
 // threads * 4 * T uint32 words (unused when `shared`); tables: blocks *
-// threads * T * M float32.  timeout = timeout_per_bit * T SEARCH steps
-// per frame.  Host arrays: points [M, 2] float32, polys [symlen] uint32.
-// Returns the launch's cudaError_t.
-int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables, int lanes, int fpl,
-               int lane0, unsigned seed, float param, int soft, int snap, int K, int L, int T,
-               int symlen, const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
+// threads * T * M float32 (the wide build: T * 2, and dev_points, the
+// constellation [M, 2] float32 in device memory, for AWGN; unused by the
+// narrow build).  timeout = timeout_per_bit * T SEARCH steps per frame.
+// Host arrays: points [M, 2] float32, polys [symlen] uint32.  Returns the
+// launch's cudaError_t.
+int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables,
+               const float* dev_points, int lanes, int fpl, int lane0, unsigned seed,
+               float param, int soft, int snap, int K, int L, int T, int symlen,
+               const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
                float weight, int correct, int wrong, int timeout, int shared, int threads,
                int blocks, int smem, cudaStream_t stream) {
   SeqDecoderParams p;
@@ -425,6 +439,10 @@ int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables, 
   p.lanes = lanes;
   p.fpl = fpl;
   p.gid0 = (unsigned)lane0 * (unsigned)fpl;
+#if CC_SEQ_WIDE
+  p.points = reinterpret_cast<const float2*>(dev_points);
+  if (soft && dev_points == nullptr) return (int)cudaErrorInvalidValue;
+#endif
   const void* k = prepare<true>(shared, smem);
   if (!k) return (int)cudaErrorInvalidValue;
   const unsigned frames = (unsigned)lanes * (unsigned)fpl;

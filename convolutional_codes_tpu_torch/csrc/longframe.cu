@@ -36,7 +36,9 @@
 // states a thread, R steps between exchanges through shared memory, issue
 // more instructions per warp and step and were slower at every shape tried
 // (R = 2 and 3, S = 4 .. 256; PERF.md); from S = 8 to 64 the step is
-// pipelined instead (acs_pipelined).
+// pipelined instead (acs_pipelined).  M = 32-256 has one instance per S
+// with M at run time, which reads each transition's distance where it
+// lies instead of staging all M (AcsChunk<S, 0>).
 //
 // stream_traceback.  A traceback is T dependent steps per frame, from
 // given start states or from the first state of least final metric (a
@@ -80,6 +82,17 @@ struct AcsChunk {
   static constexpr int CH = CH0 < 1 ? 1 : CH0;
   static constexpr int ELEMS = CH * M * L::FPB;     // floats of a chunk
   static constexpr int PER = (ELEMS + L::THREADS - 1) / L::THREADS;
+};
+
+// M at run time (the instances <S, 0>, for M = 32-256): a chunk of M
+// distances a frame would not fit the registers (S = 4, M = 256: 128 floats
+// a thread), and a step reads at most 2S of the M columns, so each thread
+// reads its transitions' distances where they lie, dists[(t M + e) B + b],
+// coalesced over a block's frames; chunks of 32 steps stage only the
+// decision words.
+template <int S>
+struct AcsChunk<S, 0> {
+  static constexpr int CH = 32, ELEMS = 1, PER = 1;
 };
 
 // Load the [CH, M, FPB] distances of steps t0.. of the block's frames
@@ -136,7 +149,7 @@ template <int S, int M, bool HARD>
 __global__ void __launch_bounds__(AcsLayout<S>::THREADS)
 stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ init,
                   float* __restrict__ fm, int* __restrict__ dec, int T, int B, int hard_flag,
-                  const __grid_constant__ TrellisTables tt) {
+                  const __grid_constant__ TrellisTables tt, int Mr) {
   using L = AcsLayout<S>;
   using C = AcsChunk<S, M>;
   constexpr int H = L::H, FPB = L::FPB, NW = L::NW, CH = C::CH;
@@ -168,26 +181,44 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
 
   const int nchunks = (T + CH - 1) / CH;
   float pre[C::PER];
-  load_chunk<S, M>(pre, dists, 0, T, b0, B);
-  store_chunk<S, M>(bm_s[0], pre);
+  if constexpr (M > 0) {
+    load_chunk<S, M>(pre, dists, 0, T, b0, B);
+    store_chunk<S, M>(bm_s[0], pre);
+  }
   __syncthreads();
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * CH;
-    if (c + 1 < nchunks) load_chunk<S, M>(pre, dists, t0 + CH, T, b0, B);
+    if constexpr (M > 0)
+      if (c + 1 < nchunks) load_chunk<S, M>(pre, dists, t0 + CH, T, b0, B);
     const float* bmc = bm_s[c & 1] + f;
+    // M at run time: this frame's distances of the chunk's first step
+    const float* dcol = dists + (valid ? b : B - 1) + (size_t)t0 * Mr * Bs;
     const int steps = min(CH, T - t0);
-    float p0a = bmc[e0a * FPB], p1a = bmc[e1a * FPB], p0b = bmc[e0b * FPB],
-          p1b = bmc[e1b * FPB];
+    float p0a, p1a, p0b, p1b;
+    if constexpr (M == 0) {
+      p0a = dcol[e0a * Bs], p1a = dcol[e1a * Bs], p0b = dcol[e0b * Bs], p1b = dcol[e1b * Bs];
+    } else {
+      p0a = bmc[e0a * FPB], p1a = bmc[e1a * FPB], p0b = bmc[e0b * FPB], p1b = bmc[e1b * FPB];
+    }
 #pragma unroll 4   // lets the distance loads of later steps issue early
     for (int tl = 0; tl < steps; ++tl) {
       float x0a, x1a, x0b, x1b;
       if constexpr (PIPE) {
         x0a = p0a, x1a = p1a, x0b = p0b, x1b = p1b;
         if (tl + 1 < steps) {
-          const float* next = bmc + (tl + 1) * M * FPB;
-          p0a = next[e0a * FPB], p1a = next[e1a * FPB], p0b = next[e0b * FPB],
-          p1b = next[e1b * FPB];
+          if constexpr (M == 0) {
+            const float* next = dcol + (size_t)(tl + 1) * Mr * Bs;
+            p0a = next[e0a * Bs], p1a = next[e1a * Bs], p0b = next[e0b * Bs],
+            p1b = next[e1b * Bs];
+          } else {
+            const float* next = bmc + (tl + 1) * M * FPB;
+            p0a = next[e0a * FPB], p1a = next[e1a * FPB], p0b = next[e0b * FPB],
+            p1b = next[e1b * FPB];
+          }
         }
+      } else if constexpr (M == 0) {
+        const float* row = dcol + (size_t)tl * Mr * Bs;
+        x0a = row[e0a * Bs], x1a = row[e1a * Bs], x0b = row[e0b * Bs], x1b = row[e1b * Bs];
       } else {
         const float* row = bmc + tl * M * FPB;
         x0a = row[e0a * FPB], x1a = row[e1a * FPB], x0b = row[e0b * FPB], x1b = row[e1b * FPB];
@@ -247,7 +278,8 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
       const int ff = i % FPB, w = (i / FPB) % NW, tl = i / (FPB * NW);
       if (b0 + ff < B) dec[((size_t)(t0 + tl) * NW + w) * Bs + b0 + ff] = (int)dec_s[i];
     }
-    if (c + 1 < nchunks) store_chunk<S, M>(bm_s[(c + 1) & 1], pre);
+    if constexpr (M > 0)
+      if (c + 1 < nchunks) store_chunk<S, M>(bm_s[(c + 1) & 1], pre);
     __syncthreads();
   }
   if (valid) {
@@ -442,15 +474,15 @@ tb_fold_kernel(const unsigned char* __restrict__ map, const int* __restrict__ st
 
 template <int S, int M>
 void launch_stream_acs(const float* dists, const float* init, float* fm, int* dec, int T, int B,
-                       int hard, const TrellisTables& tt, cudaStream_t stream) {
+                       int hard, const TrellisTables& tt, int Mr, cudaStream_t stream) {
   using L = AcsLayout<S>;
   const int blocks = (B + L::FPB - 1) / L::FPB;
   if (acs_hard_compiled<S>() && hard)
     stream_acs_kernel<S, M, acs_hard_compiled<S>()>
-        <<<blocks, L::THREADS, 0, stream>>>(dists, init, fm, dec, T, B, hard, tt);
+        <<<blocks, L::THREADS, 0, stream>>>(dists, init, fm, dec, T, B, hard, tt, Mr);
   else
     stream_acs_kernel<S, M, false><<<blocks, L::THREADS, 0, stream>>>(dists, init, fm, dec, T, B,
-                                                                     hard, tt);
+                                                                     hard, tt, Mr);
 }
 
 }  // namespace
@@ -458,15 +490,22 @@ void launch_stream_acs(const float* dists, const float* init, float* fm, int* de
 extern "C" {
 
 // dists [T, M, B] f32, init [S, B] f32 -> fm [S, B] f32, dec [T, nwords, B]
-// i32.  esym_prev: host [S, 2] int32.  Returns cudaGetLastError().
+// i32; M = 2-16 has an instance of its own, M = 32-256 one instance per S
+// (M at run time).  esym_prev: host [S, 2] int32.  Returns
+// cudaGetLastError().
 int cc_stream_acs(const float* dists, const float* init, float* fm, int* dec, int T, int M,
                   int B, int S, int hard, const int* esym_prev, cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES) return cudaErrorInvalidValue;
+  if (T <= 0 || B <= 0 || S < 2 || S > CC_MAX_STATES || M < 2 || M > 256 || (M & (M - 1)))
+    return cudaErrorInvalidValue;
   TrellisTables tt;
   fill_trellis(&tt, esym_prev, S);
 #define CC_LAUNCH_STREAM_ACS(S_, M_) \
-  launch_stream_acs<S_, M_>(dists, init, fm, dec, T, B, hard, tt, stream)
-  CC_DISPATCH16(S, M, CC_LAUNCH_STREAM_ACS)
+  launch_stream_acs<S_, M_>(dists, init, fm, dec, T, B, hard, tt, M, stream)
+  if (M <= 16) {
+    CC_DISPATCH16(S, M, CC_LAUNCH_STREAM_ACS)
+  } else {
+    CC_DISPATCH_S(S, M, CC_LAUNCH_STREAM_ACS, CC_DISPATCH_RUNTIME_M)
+  }
 #undef CC_LAUNCH_STREAM_ACS
   return (int)cudaGetLastError();
 }

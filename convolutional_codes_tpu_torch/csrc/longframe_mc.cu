@@ -55,10 +55,17 @@
 // were slower (PERF.md).  Every state's ACS is the same float32
 // expression either way.
 //
+// Codes of 16-256 points (rate 1/4 to 1/8) run one instance per S with M
+// at run time: a row keeps its received symbol or point, and each
+// transition computes its branch metric where the ACS reads it
+// (received_row, acs.cuh's acs_step_fn), since a column of M metrics a
+// thread would not fit in shared memory.
+//
 // Exactness: built with -fmad=false, strict-less compares, the same
 // float32 expressions as the plain version; BSC runs carry no
 // transcendental and match it bit for bit.
 #include "acs.cuh"
+#define CC_SEQ_MAX_SYMLEN 8   // every width the JAX package takes (up to 256 points)
 #include "sequential.cuh"
 
 namespace {
@@ -158,6 +165,34 @@ __device__ __forceinline__ void branch_metrics(const LongframeParams& lp, unsign
   }
 }
 
+// Codes of M = 16-256 points (M at run time, the instances <S, 0>): a
+// thread's column of M metrics would take 8-128 KB of shared memory a
+// block, so a row keeps only its received symbol (BSC) or received point
+// (AWGN, snapped by the hard demapper), and each transition computes its
+// branch metric where the ACS reads it, with branch_metrics' float
+// operations in the same order: the Hamming distance, or the distance to
+// point esym.  Returns the BSC received symbol (flips as branch_metrics
+// draws them), or 0 with the point in rxi, rxq (sequential.cuh's
+// gen_received, the same Box-Muller and snap).
+__device__ __forceinline__ unsigned received_row(const LongframeParams& lp, unsigned lane,
+                                                 unsigned pos, unsigned esym, float& rxi,
+                                                 float& rxq) {
+  const SeqParams& p = lp.s;
+  if (p.soft) return gen_received(p, lane, (int)pos, esym, rxi, rxq);
+  unsigned fmask = 0;
+  for (int k = 0; k < p.symlen; ++k)
+    fmask |= (unsigned)((coord_bits(lane, pos, p.seed, seq_salt(1u + k)) >> 1) <
+                        lp.flip_below) << k;
+  return esym ^ fmask;
+}
+
+// Expected symbol of the K-bit register reg for M given at run time.
+__device__ __forceinline__ unsigned esym_runtime(const LongframeParams& p, unsigned reg) {
+  if (p.esym_packed)
+    return (unsigned)(p.esym_tab >> (reg * (unsigned)p.s.symlen)) & (unsigned)(p.s.M - 1);
+  return seq_esym(reg, p.s);
+}
+
 // The scratch of one lane: decision item q holds rows t = (q + W/P) P + i,
 // i < P, of the rows W .. Tw-1 (aligned to multiples of P, so a row's word
 // and shift follow from t alone; rows below W in the first item are
@@ -203,12 +238,24 @@ __device__ __forceinline__ void window_step(const LongframeParams& p, unsigned l
   const unsigned pos = base + (unsigned)t;
   const unsigned bit = stream_bit(p.s, lane, pos);
   reg = (reg >> 1) | (bit << (p.s.K - 1));
-  float bm[M];
-  branch_metrics<M>(p, lane, pos, esym_of<M>(p, reg), bm);
-#pragma unroll
-  for (int e = 0; e < M; ++e) bmcol[e * kThreads] = bm[e];
   unsigned words[Pk::NW];
-  acs_step_smem<S, kThreads>(src, dst, bmcol, !p.s.soft, p.tt, words);
+  if constexpr (M == 0) {   // M at run time: the metrics computed where read
+    float rxi = 0.0f, rxq = 0.0f;
+    const unsigned rx = received_row(p, lane, pos, esym_runtime(p, reg), rxi, rxq);
+    if (p.s.soft)
+      acs_step_fn<S>(src, dst, [&](unsigned e) {
+        return point_dist(p.s, rxi, rxq, p.s.px[e], p.s.py[e]);
+      }, false, p.tt, words);
+    else
+      acs_step_fn<S>(src, dst, [&](unsigned e) { return (float)__popc(rx ^ e); }, true, p.tt,
+                     words);
+  } else {
+    float bm[M];
+    branch_metrics<M>(p, lane, pos, esym_of<M>(p, reg), bm);
+#pragma unroll
+    for (int e = 0; e < M; ++e) bmcol[e * kThreads] = bm[e];
+    acs_step_smem<S, kThreads>(src, dst, bmcol, !p.s.soft, p.tt, words);
+  }
   const size_t lanes = (size_t)p.lanes;
   if constexpr (Pk::P > 1) {
     const int i = t & (Pk::P - 1);
@@ -307,12 +354,14 @@ __device__ __forceinline__ unsigned window_base(const LongframeParams& p, unsign
 // One thread per lane, all S metrics in registers.  S <= 8 is compiled for
 // 8 blocks per SM (at most 64 registers; left free, ptxas spilled the
 // S = 4, M = 8 instance at 56), S = 16 for 6 (80 registers: the S = 16,
-// M = 2 instance spilled at 64).
+// M = 2 instance spilled at 64); the instances for M at run time (M = 0)
+// for 6 up to S = 16.
 template <int S, int M>
-__global__ void __launch_bounds__(kThreads, S <= 8 ? 8 : (S == 16 ? 6 : 1))
+__global__ void __launch_bounds__(kThreads, M > 0 && S <= 8 ? 8 : (S <= 16 ? 6 : 1))
 mc_longframe_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
                     unsigned* __restrict__ info, const __grid_constant__ LongframeParams p) {
-  __shared__ float bm_s[M * kThreads];   // [e][thread]: the row's branch metrics
+  // [e][thread]: the row's branch metrics (unused for M at run time)
+  __shared__ float bm_s[(M > 0 ? M : 1) * kThreads];
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= p.lanes) return;
   const unsigned lane = (unsigned)g;
@@ -378,6 +427,45 @@ __device__ __forceinline__ void group_acs_step(const float (&src)[S / G], float 
   dbits = word;
 }
 
+// The same step for M at run time (M = 0): the row's received symbol or
+// point `row` (shared memory), each transition's metric computed where it
+// is read (SOFT: point_dist to the point in pts, shared memory; else the
+// Hamming distance, saturated), the expected symbols 8 bits each in esp.
+template <int S, int G, bool SOFT>
+__device__ __forceinline__ void group_acs_step_wide(const float (&src)[S / G],
+                                                    float (&dst)[S / G], const float2* row,
+                                                    const float2* pts, const SeqParams& p,
+                                                    const unsigned (&esp)[(S / G + 1) / 2],
+                                                    int pred_lane, unsigned& dbits) {
+  constexpr int SPT = S / G;
+  float pr[2 * SPT];
+#pragma unroll
+  for (int i = 0; i < SPT; ++i) {
+    pr[i] = __shfl_sync(kFull, src[i], pred_lane);
+    pr[SPT + i] = __shfl_sync(kFull, src[i], pred_lane + 1);
+  }
+  const float2 r = *row;
+  unsigned word = 0;
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const unsigned e = (esp[k / 2] >> (16 * (k % 2))) & 0xFFFFu;
+    const unsigned e0 = e & 0xFFu, e1 = e >> 8;
+    float c0, c1;
+    if constexpr (SOFT) {
+      c0 = pr[2 * k] + point_dist(p, r.x, r.y, pts[e0].x, pts[e0].y);
+      c1 = pr[2 * k + 1] + point_dist(p, r.x, r.y, pts[e1].x, pts[e1].y);
+    } else {
+      const unsigned rx = __float_as_uint(r.x);
+      c0 = fminf(pr[2 * k] + (float)__popc(rx ^ e0), CC_HARD_SAT);
+      c1 = fminf(pr[2 * k + 1] + (float)__popc(rx ^ e1), CC_HARD_SAT);
+    }
+    const bool d = c1 < c0;   // strict: ties keep branch 0
+    dst[k] = d ? c1 : c0;
+    word |= (unsigned)d << k;
+  }
+  dbits = word;
+}
+
 // Row t of the group: ACS src -> dst with the row's branch metrics bmrow
 // (shared memory), then the decision word assembled across the threads
 // that share it and stored by the first of them, and the info bit (stored
@@ -392,6 +480,27 @@ __device__ __forceinline__ void group_row(const LongframeParams& p, bool valid, 
   constexpr int SHARE = 32 / SPT;   // threads whose bits make one word
   unsigned dbits;
   group_acs_step<S, M, G>(src, dst, bmrow, !p.s.soft, esp, pred_lane, dbits);
+  unsigned word = SPT == 32 ? dbits : dbits << ((rg * SPT) & 31);
+#pragma unroll
+  for (int off = 1; off < SHARE; off <<= 1) word |= __shfl_xor_sync(kFull, word, off);
+  if (valid && t >= p.W && ((rg * SPT) & 31) == 0)
+    sc.dec[(size_t)(t - p.W) * Pack<S>::NW * p.lanes] = word;
+  store_info_bit(p, t, bit, valid && rg == 0, sc);
+}
+
+// group_row for M at run time: group_acs_step_wide on the row's received
+// symbol or point.
+template <int S, int G, bool SOFT>
+__device__ __forceinline__ void group_row_wide(const LongframeParams& p, bool valid, int rg,
+                                               int t, unsigned bit, const float (&src)[S / G],
+                                               float (&dst)[S / G], const float2* row,
+                                               const float2* pts,
+                                               const unsigned (&esp)[(S / G + 1) / 2],
+                                               int pred_lane, Scratch& sc) {
+  constexpr int SPT = S / G;
+  constexpr int SHARE = 32 / SPT;
+  unsigned dbits;
+  group_acs_step_wide<S, G, SOFT>(src, dst, row, pts, p.s, esp, pred_lane, dbits);
   unsigned word = SPT == 32 ? dbits : dbits << ((rg * SPT) & 31);
 #pragma unroll
   for (int off = 1; off < SHARE; off <<= 1) word |= __shfl_xor_sync(kFull, word, off);
@@ -418,8 +527,10 @@ __device__ __forceinline__ void thread_argmin(const float (&m)[SPT], int rg, flo
 // G = S / 32 threads per lane (S >= 128), compiled for 2 blocks of 128 per
 // SM (at most 255 registers).  The group draws G rows' symbols at once,
 // thread r row t0 + r, and leaves their branch metrics in shared memory
-// ([row][group][e] per warp, no bank conflicts); all G threads walk the
-// traceback (the same loads), thread 0 writes the counters.
+// ([row][group][e] per warp, no bank conflicts), or for M at run time (M =
+// 0) their received symbols or points ([row][group], two words each) and
+// the constellation beside them; all G threads walk the traceback (the
+// same loads), thread 0 writes the counters.
 template <int S, int M, int G>
 __global__ void __launch_bounds__(kThreads, 2)
 mc_longframe_group_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
@@ -431,20 +542,31 @@ mc_longframe_group_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
   const int rg = gt % G;                       // thread within the group
   const unsigned lane = (unsigned)(gt / G);
   const bool valid = lane < (unsigned)p.lanes;  // whole groups are valid or not
-  __shared__ float bm_s[kThreads * M];
+  constexpr int MW = M > 0 ? M : 2;   // words of a row: M metrics, or a symbol or point
+  __shared__ __align__(8) float bm_s[kThreads * MW];
+  __shared__ float2 pts_s[M > 0 ? 1 : CC_SEQ_MAX_POINTS];   // M at run time: the points
   const int warp_lane = threadIdx.x & 31;
   const int group_lane = warp_lane - rg;
   const int pred_lane = group_lane + 2 * (rg % (G / 2));
-  // this group's row k of the warp's branch metrics: bm_g + k (32/G) M
-  const float* bm_g = bm_s + (threadIdx.x & ~31) * M + (warp_lane / G) * M;
-  float* bm_mine = bm_s + (threadIdx.x & ~31) * M + (rg * (32 / G) + warp_lane / G) * M;
-  unsigned esp[(SPT + 3) / 4];
+  // this group's row k of the warp's branch metrics: bm_g + k (32/G) MW
+  const float* bm_g = bm_s + (threadIdx.x & ~31) * MW + (warp_lane / G) * MW;
+  float* bm_mine = bm_s + (threadIdx.x & ~31) * MW + (rg * (32 / G) + warp_lane / G) * MW;
+  // the expected symbols of the thread's states: 4 bits each (M <= 8), or
+  // 8 (M at run time)
+  constexpr int EB = M > 0 ? 4 : 8, SPW = 32 / (2 * EB);
+  unsigned esp[(SPT + SPW - 1) / SPW];
 #pragma unroll
-  for (int i = 0; i < (SPT + 3) / 4; ++i) esp[i] = 0;
+  for (int i = 0; i < (SPT + SPW - 1) / SPW; ++i) esp[i] = 0;
 #pragma unroll
   for (int k = 0; k < SPT; ++k) {
     const int ns = rg * SPT + k;
-    esp[k / 4] |= ((unsigned)p.tt.esym0[ns] | ((unsigned)p.tt.esym1[ns] << 4)) << (8 * (k % 4));
+    esp[k / SPW] |= ((unsigned)p.tt.esym0[ns] | ((unsigned)p.tt.esym1[ns] << EB))
+                    << (2 * EB * (k % SPW));
+  }
+  if constexpr (M == 0) {
+    for (int e = threadIdx.x; e < p.s.M; e += kThreads)
+      pts_s[e] = make_float2(p.s.px[e], p.s.py[e]);
+    __syncthreads();
   }
   const int K = p.s.K;
   int errs = 0, werrs = 0;
@@ -467,20 +589,53 @@ mc_longframe_group_kernel(int* __restrict__ out, unsigned* __restrict__ scratch,
         reg = (reg >> 1) | (((gb >> i) & 1u) << (K - 1));
         myreg = i == rg ? reg : myreg;
       }
-      float bmr[M];
-      branch_metrics<M>(p, lane, pos, esym_of<M>(p, myreg), bmr);
-      __syncwarp();   // the last chunk's rows are read
+      if constexpr (M == 0) {
+        float rxi = 0.0f, rxq = 0.0f;
+        const unsigned rx = received_row(p, lane, pos, esym_runtime(p, myreg), rxi, rxq);
+        __syncwarp();   // the last chunk's rows are read
+        *reinterpret_cast<float2*>(bm_mine) =
+            p.s.soft ? make_float2(rxi, rxq) : make_float2(__uint_as_float(rx), 0.0f);
+        __syncwarp();
+        const float2* rows = reinterpret_cast<const float2*>(bm_g);
+        if (p.s.soft) {
 #pragma unroll
-      for (int e = 0; e < M; ++e) bm_mine[e] = bmr[e];
-      __syncwarp();
+          for (int k = 0; k < G; k += 2) {
+            if (t0 + k < p.Tw)
+              group_row_wide<S, G, true>(p, valid, rg, t0 + k, (gb >> k) & 1u, ma, mb,
+                                         rows + k * (32 / G), pts_s, esp, pred_lane, sc);
+            if (t0 + k + 1 < p.Tw)
+              group_row_wide<S, G, true>(p, valid, rg, t0 + k + 1, (gb >> (k + 1)) & 1u, mb,
+                                         ma, rows + (k + 1) * (32 / G), pts_s, esp, pred_lane,
+                                         sc);
+          }
+        } else {
 #pragma unroll
-      for (int k = 0; k < G; k += 2) {
-        if (t0 + k < p.Tw)
-          group_row<S, M, G>(p, valid, rg, t0 + k, (gb >> k) & 1u, ma, mb,
-                             bm_g + k * (32 / G) * M, esp, pred_lane, sc);
-        if (t0 + k + 1 < p.Tw)
-          group_row<S, M, G>(p, valid, rg, t0 + k + 1, (gb >> (k + 1)) & 1u, mb, ma,
-                             bm_g + (k + 1) * (32 / G) * M, esp, pred_lane, sc);
+          for (int k = 0; k < G; k += 2) {
+            if (t0 + k < p.Tw)
+              group_row_wide<S, G, false>(p, valid, rg, t0 + k, (gb >> k) & 1u, ma, mb,
+                                          rows + k * (32 / G), pts_s, esp, pred_lane, sc);
+            if (t0 + k + 1 < p.Tw)
+              group_row_wide<S, G, false>(p, valid, rg, t0 + k + 1, (gb >> (k + 1)) & 1u, mb,
+                                          ma, rows + (k + 1) * (32 / G), pts_s, esp,
+                                          pred_lane, sc);
+          }
+        }
+      } else {
+        float bmr[M];
+        branch_metrics<M>(p, lane, pos, esym_of<M>(p, myreg), bmr);
+        __syncwarp();   // the last chunk's rows are read
+#pragma unroll
+        for (int e = 0; e < M; ++e) bm_mine[e] = bmr[e];
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < G; k += 2) {
+          if (t0 + k < p.Tw)
+            group_row<S, M, G>(p, valid, rg, t0 + k, (gb >> k) & 1u, ma, mb,
+                               bm_g + k * (32 / G) * M, esp, pred_lane, sc);
+          if (t0 + k + 1 < p.Tw)
+            group_row<S, M, G>(p, valid, rg, t0 + k + 1, (gb >> (k + 1)) & 1u, mb, ma,
+                               bm_g + (k + 1) * (32 / G) * M, esp, pred_lane, sc);
+        }
       }
     }
     // first state of least metric: within the thread, then across the
@@ -549,8 +704,8 @@ int cc_mc_longframe(int* out, unsigned* scratch, unsigned* info, int lanes, int 
   const int S = 1 << (K - 1);
   const int M = 1 << symlen;
   const int Tw = Wn + 2 * W;
-  if (lanes <= 0 || nsteps < 0 || W < 0 || Wn <= 0 || S > CC_MAX_STATES ||
-      M > CC_MAX_POINTS || info == nullptr || group != (S <= 64 ? 1 : S / 32))
+  if (lanes <= 0 || nsteps < 0 || W < 0 || Wn <= 0 || S > CC_MAX_STATES || info == nullptr ||
+      group != (S <= 64 ? 1 : S / 32))
     return cudaErrorInvalidValue;
   LongframeParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, Tw, Tw + K - 1, symlen,
@@ -570,7 +725,11 @@ int cc_mc_longframe(int* out, unsigned* scratch, unsigned* info, int lanes, int 
   int status = 0;
 #define CC_LAUNCH_LONGFRAME(S_, M_) \
   status = launch_longframe<S_, M_>(grid, stream, out, scratch, info, p)
-  CC_DISPATCH(S, M, CC_LAUNCH_LONGFRAME)
+  if (M <= CC_MAX_POINTS) {
+    CC_DISPATCH(S, M, CC_LAUNCH_LONGFRAME)
+  } else {   // M = 16-256 (fill_seq_params took symlen <= 8): M at run time
+    CC_DISPATCH_S(S, M, CC_LAUNCH_LONGFRAME, CC_DISPATCH_RUNTIME_M)
+  }
 #undef CC_LAUNCH_LONGFRAME
   if (status) return status;
   return (int)cudaGetLastError();

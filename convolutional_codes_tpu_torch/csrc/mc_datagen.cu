@@ -4,6 +4,7 @@
 // counterpart of ops/mc_datagen.frames_host and is used by the checks only,
 // so that a plain decoder can decode exactly what a kernel decoded.  One
 // thread per frame; bound by the hash and Box-Muller arithmetic.
+#define CC_SEQ_MAX_SYMLEN 8   // every width the JAX package takes (up to 256 points)
 #include "sequential.cuh"
 
 namespace {

@@ -17,8 +17,21 @@
 
 #include <cuda_runtime.h>
 
+// The widest symbol the build takes: 4 coded bits (16 points) in the
+// narrow libraries stack_mc and fano_mc, which every registered code uses;
+// 8 (256 points, the widest code the JAX package takes) in their wide
+// builds stack_mc_wide and fano_mc_wide (the same sources built with
+// -DCC_SEQ_MAX_SYMLEN=8: utils/build.py) and in longframe_mc.cu and
+// mc_datagen.cu, which define it before including this header.  The
+// narrow libraries so compile exactly as before the wide codes came, and
+// a wide build adds the device-memory constellation and the per-step
+// metrics of its Monte-Carlo walks (CC_SEQ_WIDE: RowMetrics).
+#ifndef CC_SEQ_MAX_SYMLEN
 #define CC_SEQ_MAX_SYMLEN 4
+#endif
 #define CC_SEQ_MAX_POINTS (1 << CC_SEQ_MAX_SYMLEN)
+#define CC_SEQ_NARROW_SYMLEN 4
+#define CC_SEQ_WIDE (CC_SEQ_MAX_SYMLEN > CC_SEQ_NARROW_SYMLEN)
 #define CC_SEQ_THREADS 32
 
 struct SeqParams {
@@ -41,6 +54,9 @@ struct SeqDecoderParams {
   int timeout;               // Fano: SEARCH steps per frame
   int lanes, fpl;
   unsigned gid0;             // Monte-Carlo: global id of the launch's frame 0
+#if CC_SEQ_WIDE
+  const float2* points;      // wide Monte-Carlo walks: the constellation in device memory
+#endif
 };
 
 // Returns 0, or cudaErrorInvalidValue for shapes the device code does not take.
@@ -89,6 +105,9 @@ static inline int fill_supplied_params(SeqDecoderParams* p, int soft, int K, int
   p->lanes = lanes;
   p->fpl = 1;
   p->gid0 = 0u;
+#if CC_SEQ_WIDE
+  p->points = nullptr;
+#endif
   return 0;
 }
 
@@ -175,6 +194,51 @@ __device__ __forceinline__ unsigned gen_symbol(const SeqParams& p, unsigned gid,
   }
   return 0u;
 }
+
+// The demapper's distance of the received point (rxi, rxq) to point (pxe,
+// pye): gen_symbol's float operations, in its order.
+__device__ __forceinline__ float point_dist(const SeqParams& p, float rxi, float rxq, float pxe,
+                                            float pye) {
+  const float di = rxi - pxe, dq = rxq - pye;
+  return ((di * di) + (dq * dq)) * p.inv_nd;
+}
+
+#if CC_SEQ_WIDE
+// gen_symbol's channel output before its distances: the BSC received
+// symbol returned, or (AWGN, returns 0) the received point, snapped to the
+// nearest point by the hard demapper, in rxi, rxq; point_dist from it to
+// point e is gen_symbol's distance d(e) (the wide walks' RowMetrics).
+__device__ __forceinline__ unsigned gen_received(const SeqParams& p, unsigned gid, int t,
+                                                 unsigned esym, float& rxi, float& rxq) {
+  if (!p.soft) {
+    unsigned fmask = 0;
+    for (int k = 0; k < p.symlen; ++k)
+      fmask |= (unsigned)(coord_uniform(gid, (unsigned)t, p.seed, seq_salt(1u + k)) <
+                          p.param) << k;
+    return esym ^ fmask;
+  }
+  const float u0 = coord_uniform(gid, (unsigned)t, p.seed, seq_salt(1u));
+  const float u1 = coord_uniform(gid, (unsigned)t, p.seed, seq_salt(2u));
+  const float r = sqrtf(-2.0f * logf(u0));
+  const float theta = 6.28318530717958647692f * u1;
+  rxi = p.px[esym] + p.param * (r * cosf(theta));
+  rxq = p.py[esym] + p.param * (r * sinf(theta));
+  if (p.snap) {  // nearest point by strict-less scan (first wins)
+    float best = 0.0f;
+    int be = 0;
+    for (int e = 0; e < p.M; ++e) {
+      const float d = point_dist(p, rxi, rxq, p.px[e], p.py[e]);
+      if (e == 0 || d < best) {
+        best = d;
+        be = e;
+      }
+    }
+    rxi = p.px[be];
+    rxq = p.py[be];
+  }
+  return 0u;
+}
+#endif
 
 // Write frame gid's channel output: AWGN distances at fs[(t*M + e)*stride]
 // or BSC symbols at is[t*stride]; info bits (tail zero) at bits[t] when
@@ -277,6 +341,26 @@ __device__ __forceinline__ float hard_metric(const SeqDecoderParams& p, unsigned
   return (float)(h * p.wrong + (p.s.symlen - h) * p.correct);
 }
 
+#if CC_SEQ_WIDE
+// A wide Monte-Carlo frame's channel output in device memory, one row a
+// symbol, made once per frame (crew_gen_wide): the received point (rxi,
+// rxq), snapped by the hard demapper (AWGN), or the received symbol in
+// the row's first word (BSC).  The metric of expected symbol e at node t
+// is computed from it at each step with the table's float operations
+// (point_dist to point e, then soft_metric; hard_metric): T * 2 words a
+// slot where a table of 32-256 points would take T * M.
+struct RowMetrics {
+  const SeqDecoderParams* p;
+  const float2* rows;
+  __device__ __forceinline__ float at(int t, unsigned e) const {
+    const float2 r = rows[t];
+    if (!p->s.soft) return hard_metric(*p, e, __float_as_uint(r.x));
+    const float2 q = p->points[e];
+    return soft_metric(*p, point_dist(p->s, r.x, r.y, q.x, q.y));
+  }
+};
+#endif
+
 // Refills and retirements are collective over the lanes of a warp still
 // in its loop (`alive`): a lane whose walk has stopped hands its frame to
 // all of them, which share its writing out and the making of its next
@@ -314,3 +398,22 @@ __device__ __forceinline__ void crew_gen(const SeqDecoderParams& p, const Crew& 
       for (int e = 0; e < M; ++e) row[e] = hard_metric(p, (unsigned)e, rx);
   }
 }
+
+#if CC_SEQ_WIDE
+// crew_gen for a wide walk: frame gid's rows of RowMetrics into `rows`,
+// rank r of the crew making symbols [r * seg, (r + 1) * seg).
+__device__ __forceinline__ void crew_gen_wide(const SeqDecoderParams& p, const Crew& c,
+                                              unsigned gid, float2* rows) {
+  const int T = p.s.T, K = p.s.K;
+  const int seg = (T + c.n - 1) / c.n, t0 = c.rank * seg, t1 = min(T, t0 + seg);
+  unsigned reg = 0u;
+  for (int t = max(0, t0 - K + 1); t < t0; ++t)
+    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
+  for (int t = t0; t < t1; ++t) {
+    reg = (reg >> 1) | (frame_bit(p.s, gid, t) << (K - 1));
+    float rxi = 0.0f, rxq = 0.0f;
+    const unsigned rx = gen_received(p.s, gid, t, seq_esym(reg, p.s), rxi, rxq);
+    rows[t] = p.s.soft ? make_float2(rxi, rxq) : make_float2(__uint_as_float(rx), 0.0f);
+  }
+}
+#endif

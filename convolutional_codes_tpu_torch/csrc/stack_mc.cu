@@ -64,7 +64,10 @@
 //    every live group an iteration was slower on every code (PERF.md).
 //  * Branch metrics: kernel 7 reads its walk's table of T * M metrics, made
 //    by the crew in device memory; kernel 9 computes them from the supplied
-//    frame.
+//    frame.  Codes of 5-8 coded bits a symbol run the wide build of this
+//    file (stack_mc_wide, sequential.cuh's CC_SEQ_WIDE), whose kernel 7
+//    keeps a frame's T received rows instead of a table 8-64 times larger
+//    and computes each metric from them (RowMetrics).
 // Built with -fmad=false: every product is rounded before its add.
 #include "sequential.cuh"
 
@@ -361,7 +364,11 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
   const S f = S::make(scratch, c.lane, p.s.K, nw);
   const Encoder enc = Encoder::make(p.s);
   const unsigned e_in = enc.esym(0u, 1u);
+#if CC_SEQ_WIDE
+  const RowMetrics m = {&p, reinterpret_cast<const float2*>(slot_table(tables, T, 2, c.lane))};
+#else
   const TableMetrics m = {slot_table(tables, T, M, c.lane), (unsigned)M};
+#endif
   unsigned fr = frames;                 // the frame being walked; none yet
   unsigned ahead = atomicAdd(queue, 1u);  // the lane's next frame, taken one frame ahead
   StackWalk w;
@@ -381,7 +388,12 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
           Crew solo = c;
           solo.rank = 0;
           solo.n = 1;
+#if CC_SEQ_WIDE
+          crew_gen_wide(p, solo, p.gid0 + fr,
+                        reinterpret_cast<float2*>(slot_table(tables, T, 2, c.lane)));
+#else
           crew_gen(p, solo, p.gid0 + fr, slot_table(tables, T, M, c.lane));
+#endif
           stack_start(w, f, nw);
         }
       }
@@ -407,7 +419,11 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
         if (c.lane == j) break;
         continue;
       }
+#if CC_SEQ_WIDE
+      crew_gen_wide(p, c, p.gid0 + next, reinterpret_cast<float2*>(slot_table(tables, T, 2, j)));
+#else
       crew_gen(p, c, p.gid0 + next, slot_table(tables, T, M, j));
+#endif
       __syncwarp(c.alive);
       if (c.lane == j) stack_start(w, f, nw);
     }
@@ -549,13 +565,16 @@ int cc_stack_occupancy(int mc, int shared, int pack, int threads, int smem, int*
 // out [3, lanes] int64, zeroed; queue one uint32, zeroed; scratch: the path
 // bits, blocks * threads * 64 * ceil(L / 32) uint32 words, where the plan
 // keeps them in device memory (unused when `shared`); tables: blocks *
-// threads * T * M float32.  Host arrays: points [M, 2] float32, polys
-// [symlen] uint32.  Returns the launch's cudaError_t.
-int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* tables, int lanes,
-                int fpl, int lane0, unsigned seed, float param, int soft, int snap, int K,
-                int L, int T, int symlen, const float* points, const unsigned* polys,
-                unsigned qmask, float inv_nd, float weight, int correct, int wrong, int shared,
-                int pack, int threads, int blocks, int smem, cudaStream_t stream) {
+// threads * T * M float32 (the wide build: T * 2, and dev_points, the
+// constellation [M, 2] float32 in device memory, for AWGN; unused by the
+// narrow build).  Host arrays: points [M, 2] float32, polys [symlen]
+// uint32.  Returns the launch's cudaError_t.
+int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* tables,
+                const float* dev_points, int lanes, int fpl, int lane0, unsigned seed,
+                float param, int soft, int snap, int K, int L, int T, int symlen,
+                const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
+                float weight, int correct, int wrong, int shared, int pack, int threads,
+                int blocks, int smem, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, L, T, symlen, points,
                                   polys, qmask, inv_nd);
@@ -570,6 +589,10 @@ int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* table
   p.lanes = lanes;
   p.fpl = fpl;
   p.gid0 = (unsigned)lane0 * (unsigned)fpl;
+#if CC_SEQ_WIDE
+  p.points = reinterpret_cast<const float2*>(dev_points);
+  if (soft && dev_points == nullptr) return (int)cudaErrorInvalidValue;
+#endif
   const void* k = prepare<true>(shared, pack, smem);
   if (!k) return (int)cudaErrorInvalidValue;
   const unsigned frames = (unsigned)lanes * (unsigned)fpl;

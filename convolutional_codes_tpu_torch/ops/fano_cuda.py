@@ -30,6 +30,7 @@ from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
 from convolutional_codes_tpu_torch.ops.fano_mc import (
     _lib, _timeout, fano_plan, grid_blocks, node_scratch)
+from convolutional_codes_tpu_torch.ops.sequential_common import is_wide
 from convolutional_codes_tpu_torch.ops.stack_cuda import check_frames, code_args
 from convolutional_codes_tpu_torch.utils.build import check_status
 
@@ -48,7 +49,7 @@ def fano_decode_cuda(code: Code, symbols: torch.Tensor, soft: bool,
     B, dev = symbols.shape[0], symbols.device
     K, L, T, symlen, polys, qmask = code_args(code)
     plan = fano_plan(T)
-    blocks = grid_blocks(False, plan, B, dev)
+    blocks = grid_blocks(False, plan, B, dev, is_wide(code))
     nodes = node_scratch(plan, T, blocks * plan.threads, dev)
     bits = torch.empty((B, L), dtype=torch.int32, device=dev)
     metric = torch.empty(B, dtype=torch.float32, device=dev)
@@ -56,7 +57,7 @@ def fano_decode_cuda(code: Code, symbols: torch.Tensor, soft: bool,
     iters = torch.empty(B, dtype=torch.int64, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        status = _lib().cc_fano_decode(
+        status = _lib(is_wide(code)).cc_fano_decode(
             bits.data_ptr(), metric.data_ptr(), left_depth[0].data_ptr(),
             left_depth[1].data_ptr(), iters.data_ptr(), queue.data_ptr(), nodes.data_ptr(),
             syms.data_ptr(), B, int(soft), K, L, T, symlen, polys.ctypes.data, qmask,

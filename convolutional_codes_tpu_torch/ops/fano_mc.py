@@ -35,7 +35,8 @@ from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_machine
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
 from convolutional_codes_tpu_torch.ops.sequential_common import (  # noqa: F401 (the plan's limits)
-    MAX_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, resident_slots)
+    MAX_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, device_points, is_wide,
+    resident_slots, slot_metric_floats)
 from convolutional_codes_tpu_torch.ops.stack_mc import check_lanes, count_errors
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -103,12 +104,14 @@ def fano_plan(T: int) -> FanoPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = load_library("fano_mc")
+def _lib(wide: bool = False):
+    """The library of narrow codes, or its wide build (symlen 5-8,
+    ``sequential_common.is_wide``)."""
+    lib = load_library("fano_mc_wide" if wide else "fano_mc")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.cc_fano_occupancy.argtypes = [I, I, I, I, P]
     lib.cc_fano_occupancy.restype = I
-    lib.cc_mc_fano.argtypes = [P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
+    lib.cc_mc_fano.argtypes = [P, P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
                                I, I, I, I, I, I, I, P]
     lib.cc_mc_fano.restype = I
     lib.cc_fano_decode.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I,
@@ -118,14 +121,15 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(mc: bool, plan: FanoPlan, device_index: int) -> dict:
+def occupancy(mc: bool, plan: FanoPlan, device_index: int, wide: bool = False) -> dict:
     """What the card makes of ``plan`` for the Monte-Carlo kernel (``mc``)
-    or the decoder of supplied frames: resident blocks per SM, SMs,
+    or the decoder of supplied frames, narrow or ``wide`` instance
+    (``sequential_common.is_wide``): resident blocks per SM, SMs,
     registers and local (stack) bytes per thread."""
     info = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        status = _lib().cc_fano_occupancy(int(mc), int(plan.nodes_shared), plan.threads,
-                                          plan.smem_bytes, ctypes.addressof(info))
+        status = _lib(wide).cc_fano_occupancy(int(mc), int(plan.nodes_shared), plan.threads,
+                                              plan.smem_bytes, ctypes.addressof(info))
     check_status(status, "fano occupancy")
     if info[0] < 1:
         raise RuntimeError(f"fano plan {plan} leaves no block resident on an SM")
@@ -133,11 +137,12 @@ def occupancy(mc: bool, plan: FanoPlan, device_index: int) -> dict:
             "local_bytes": info[3]}
 
 
-def grid_blocks(mc: bool, plan: FanoPlan, frames: int, device: torch.device) -> int:
+def grid_blocks(mc: bool, plan: FanoPlan, frames: int, device: torch.device,
+                wide: bool = False) -> int:
     """Blocks of the persistent grid: every resident block, or fewer when
     fewer frames than slots are queued."""
     occ = occupancy(mc, plan, device.index if device.index is not None
-                    else torch.cuda.current_device())
+                    else torch.cuda.current_device(), wide)
     return min(occ["sms"] * occ["blocks_per_sm"], -(-frames // plan.threads))
 
 
@@ -153,19 +158,21 @@ def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
             plan: FanoPlan = None) -> torch.Tensor:
     """The kernel's launch under ``fano_plan(T)``, or under ``plan`` where a
     measurement compares plans."""
-    T, M = code.num_block_symbols, code.points_per_symbol
+    T = code.num_block_symbols
     soft, timeout = channel == "awgn", _timeout(code, timeout_per_bit)
     plan = plan or fano_plan(T)
-    blocks = grid_blocks(True, plan, lanes * fpl, device)
+    blocks = grid_blocks(True, plan, lanes * fpl, device, is_wide(code))
     slots = blocks * plan.threads
     nodes = node_scratch(plan, T, slots, device)
-    tables = torch.empty(slots * T * M, dtype=torch.float32, device=device)
+    tables = torch.empty(slots * slot_metric_floats(code), dtype=torch.float32, device=device)
+    dev_points = device_points(code, channel, device)
     out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
     queue = torch.zeros(1, dtype=torch.int32, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
     with torch.cuda.device(device):
-        status = _lib().cc_mc_fano(
-            out.data_ptr(), queue.data_ptr(), nodes.data_ptr(), tables.data_ptr(), lanes, fpl,
+        status = _lib(is_wide(code)).cc_mc_fano(
+            out.data_ptr(), queue.data_ptr(), nodes.data_ptr(), tables.data_ptr(),
+            dev_points.data_ptr(), lanes, fpl,
             int(lane0), int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
             code.constraint_length, code.block_length, T, code.symlen_out,
             points.ctypes.data, polys.ctypes.data, qmask, inv_nd,

@@ -43,7 +43,7 @@ from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.encoder import register_symbols
 from convolutional_codes_tpu_torch.ops.fused_chain import (
-    CHANNELS, DEMAPPERS, MAX_POINTS, MAX_STATES, _TWO_PI, _dist_vec, _snap, flip_threshold)
+    CHANNELS, DEMAPPERS, MAX_STATES, _TWO_PI, _dist_vec, _snap, flip_threshold)
 from convolutional_codes_tpu_torch.ops.viterbi import (
     HARD_METRIC_SAT, acs_scan, hard_branch_metrics, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import MASK32, first_argmin, mul32
@@ -90,11 +90,13 @@ def _check_args(code: Code, channel: str, demapper: str, window: int,
     if channel == "bsc" and 2 * Tw >= HARD_METRIC_SAT:
         raise ValueError(f"window+halos {Tw} too long for saturating hard metrics "
                          "(metric ceiling 0xFF00)")
-    if code.num_states > MAX_STATES or code.points_per_symbol > MAX_POINTS:
+    if code.num_states > MAX_STATES:
         raise NotImplementedError(
-            f"the long-frame chain supports S <= {MAX_STATES} and M <= {MAX_POINTS}; "
-            f"{code.name} has S={code.num_states}, M={code.points_per_symbol}")
-    if channel == "awgn" and code_tables(code).points_np is None:
+            f"the long-frame chain supports S <= {MAX_STATES} (K <= 9); "
+            f"{code.name} has S={code.num_states}")
+    # any M, as the JAX package's kernel; which, like it, builds its stage
+    # helpers from the constellation on both channels
+    if code_tables(code).points_np is None:
         raise ValueError(f"no constellation for {code.symlen_out} bits/symbol")
     return Tw
 

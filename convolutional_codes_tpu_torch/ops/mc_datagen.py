@@ -36,16 +36,15 @@ DEMAPPERS = ("soft", "hard")
 
 
 def check_args(code: Code, channel: str, demapper: str) -> None:
-    """The sequential MC paths take AWGN (soft or hard demapper, a
-    registered constellation) or BSC, and symlen_out <= 4."""
+    """The sequential MC paths take AWGN (soft or hard demapper) or BSC,
+    for any symlen_out with a registered constellation: the JAX package's
+    ``make_datagen`` builds its stage helpers on every channel, so it too
+    raises ``ValueError`` for a width without one, BSC included."""
     if channel not in CHANNELS:
         raise ValueError(f"channel must be one of {CHANNELS}, got {channel!r}")
     if demapper not in DEMAPPERS:
         raise ValueError(f"demapper must be one of {DEMAPPERS}, got {demapper!r}")
-    if code.symlen_out > 4:
-        raise NotImplementedError(f"the sequential MC paths take symlen_out <= 4; "
-                                  f"{code.name} has {code.symlen_out}")
-    if channel == "awgn" and code_tables(code).points_np is None:
+    if code_tables(code).points_np is None:
         raise ValueError(f"no constellation for {code.symlen_out} bits/symbol")
 
 

@@ -38,6 +38,35 @@ SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
 MAX_THREADS, THREADS_PER_SM, BLOCKS_PER_SM = 128, 2048, 32
 
 
+#: coded bits a symbol the walks take (``CC_SEQ_MAX_SYMLEN`` in
+#: ``csrc/sequential.cuh``), and the most their narrow instances take
+#: (``CC_SEQ_NARROW_SYMLEN``): every registered code; a wider code (5-8
+#: bits, 32-256 points) runs the wide instances, whose Monte-Carlo walks
+#: keep a frame's received rows instead of its table of T * M metrics
+MAX_SYMLEN, NARROW_SYMLEN = 8, 4
+
+
+def is_wide(code: Code) -> bool:
+    """Whether ``code``'s walks run the wide kernel instances."""
+    return code.symlen_out > NARROW_SYMLEN
+
+
+def slot_metric_floats(code: Code) -> int:
+    """float32 words of one Monte-Carlo walk's branch metrics in device
+    memory: a table of T * M, or T rows of a received point (wide)."""
+    T = code.num_block_symbols
+    return T * (2 if is_wide(code) else code.points_per_symbol)
+
+
+def device_points(code: Code, channel: str, device) -> torch.Tensor:
+    """The constellation [M, 2] float32 on ``device``, which the wide
+    Monte-Carlo walks read at each step (one placeholder word for a narrow
+    code or BSC)."""
+    if channel != "awgn" or not is_wide(code):
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    return code_tables(code, device).points.contiguous()
+
+
 def resident_slots(threads: int, per_slot: int) -> int:
     """Threads one SM holds with blocks of ``threads`` taking ``per_slot``
     shared bytes each (registers aside)."""

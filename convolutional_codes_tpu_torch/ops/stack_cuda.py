@@ -29,19 +29,17 @@ import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
+from convolutional_codes_tpu_torch.ops.sequential_common import MAX_SYMLEN, is_wide
 from convolutional_codes_tpu_torch.ops.stack_mc import (
     _lib, code_plan, grid_blocks, plan_args, walk_scratch)
 from convolutional_codes_tpu_torch.utils.build import check_status
-
-#: the device walks take up to this many coded bits per symbol
-#: (``CC_SEQ_MAX_SYMLEN`` in ``csrc/sequential.cuh``)
-MAX_SYMLEN = 4
 
 
 def check_frames(code: Code, symbols: torch.Tensor, soft: bool) -> None:
     """Raise ``ValueError`` unless ``symbols`` are supplied frames the
     sequential kernels take: ``soft`` ``[B >= 1, T, 2^m]`` distances or
-    hard ``[B >= 1, T]`` symbols of a code with symlen_out <= 4, on a CUDA
+    hard ``[B >= 1, T]`` symbols of a code with symlen_out <= 8 (every
+    width the JAX package's constellations and decoders take), on a CUDA
     device."""
     if code.symlen_out > MAX_SYMLEN:
         raise ValueError(f"the kernels take symlen_out <= {MAX_SYMLEN}; "
@@ -76,14 +74,14 @@ def stack_machine_cuda(code: Code, symbols: torch.Tensor, soft: bool
     B, dev = symbols.shape[0], symbols.device
     K, L, T, symlen, polys, qmask = code_args(code)
     plan = code_plan(code)
-    blocks = grid_blocks(False, plan, B, dev)
+    blocks = grid_blocks(False, plan, B, dev, is_wide(code))
     scratch = walk_scratch(plan, code, blocks * plan.threads, dev)
     bits = torch.empty((B, L), dtype=torch.int32, device=dev)
     metric = torch.empty(B, dtype=torch.float32, device=dev)
     iters = torch.empty(B, dtype=torch.int64, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        status = _lib().cc_stack_decode(
+        status = _lib(is_wide(code)).cc_stack_decode(
             bits.data_ptr(), metric.data_ptr(), iters.data_ptr(), queue.data_ptr(),
             scratch.data_ptr(), syms.data_ptr(), B, int(soft), K, L, T, symlen,
             polys.ctypes.data, qmask, float(code.metric_weight), int(code.bit_metrics[0]),

@@ -39,7 +39,7 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
 from convolutional_codes_tpu_torch.ops.sequential_common import (
-    MAX_THREADS, SMEM_PER_BLOCK, resident_slots)
+    MAX_THREADS, SMEM_PER_BLOCK, device_points, is_wide, resident_slots, slot_metric_floats)
 from convolutional_codes_tpu_torch.ops.stack import STACK_DEPTH, stack_machine
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -145,12 +145,14 @@ def walk_scratch(plan: StackPlan, code: Code, slots: int, device) -> torch.Tenso
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = load_library("stack_mc")
+def _lib(wide: bool = False):
+    """The library of narrow codes, or its wide build (symlen 5-8,
+    ``sequential_common.is_wide``)."""
+    lib = load_library("stack_mc_wide" if wide else "stack_mc")
     P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     lib.cc_stack_occupancy.argtypes = [I, I, I, I, I, P]
     lib.cc_stack_occupancy.restype = I
-    lib.cc_mc_stack.argtypes = [P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
+    lib.cc_mc_stack.argtypes = [P, P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
                                 I, I, I, I, I, I, I, P]
     lib.cc_mc_stack.restype = I
     lib.cc_stack_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I, I,
@@ -165,14 +167,15 @@ def plan_args(plan: StackPlan):
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(mc: bool, plan: StackPlan, device_index: int) -> dict:
+def occupancy(mc: bool, plan: StackPlan, device_index: int, wide: bool = False) -> dict:
     """What the card makes of ``plan`` for the Monte-Carlo kernel (``mc``)
-    or the decoder of supplied frames: resident blocks per SM, SMs,
+    or the decoder of supplied frames, narrow or ``wide`` instance
+    (``sequential_common.is_wide``): resident blocks per SM, SMs,
     registers and local (stack) bytes per thread."""
     info = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
-        status = _lib().cc_stack_occupancy(int(mc), *plan_args(plan), plan.smem_bytes,
-                                           ctypes.addressof(info))
+        status = _lib(wide).cc_stack_occupancy(int(mc), *plan_args(plan), plan.smem_bytes,
+                                               ctypes.addressof(info))
     check_status(status, "stack occupancy")
     if info[0] < 1:
         raise RuntimeError(f"stack plan {plan} leaves no block resident on an SM")
@@ -180,11 +183,12 @@ def occupancy(mc: bool, plan: StackPlan, device_index: int) -> dict:
             "local_bytes": info[3]}
 
 
-def grid_blocks(mc: bool, plan: StackPlan, frames: int, device: torch.device) -> int:
+def grid_blocks(mc: bool, plan: StackPlan, frames: int, device: torch.device,
+                wide: bool = False) -> int:
     """Blocks of the persistent grid: every resident block, or fewer when
     fewer frames than walks are queued."""
     occ = occupancy(mc, plan, device.index if device.index is not None
-                    else torch.cuda.current_device())
+                    else torch.cuda.current_device(), wide)
     return min(occ["sms"] * occ["blocks_per_sm"], -(-frames // plan.threads))
 
 
@@ -208,22 +212,23 @@ def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
         raise ValueError(f"mc_stack runs on CPU or CUDA, got {device}")
     check_args(code, channel, demapper)
     check_lanes(lanes, frames_per_lane, lane0)
-    T, M = code.num_block_symbols, code.points_per_symbol
+    T = code.num_block_symbols
     soft = channel == "awgn"
     plan = code_plan(code)
-    blocks = grid_blocks(True, plan, lanes * frames_per_lane, device)
+    blocks = grid_blocks(True, plan, lanes * frames_per_lane, device, is_wide(code))
     slots = blocks * plan.threads
     scratch = walk_scratch(plan, code, slots, device)
-    tables = torch.empty(slots * T * M, dtype=torch.float32, device=device)
+    tables = torch.empty(slots * slot_metric_floats(code), dtype=torch.float32, device=device)
+    dev_points = device_points(code, channel, device)
     out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
     queue = torch.zeros(1, dtype=torch.int32, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
     with torch.cuda.device(device):
-        status = _lib().cc_mc_stack(
-            out.data_ptr(), queue.data_ptr(), scratch.data_ptr(), tables.data_ptr(), lanes,
-            frames_per_lane, int(lane0), int(seed) & 0x7FFFFFFF, float(param), int(soft),
-            int(demapper == "hard"), code.constraint_length, code.block_length, T,
-            code.symlen_out, points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
+        status = _lib(is_wide(code)).cc_mc_stack(
+            out.data_ptr(), queue.data_ptr(), scratch.data_ptr(), tables.data_ptr(),
+            dev_points.data_ptr(), lanes, frames_per_lane, int(lane0),
+            int(seed) & 0x7FFFFFFF, float(param), int(soft), int(demapper == "hard"),
+            code.constraint_length, code.block_length, T, code.symlen_out, points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
             float(code.metric_weight), int(code.bit_metrics[0]),
             int(code.bit_metrics[1]), *plan_args(plan), blocks, plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream)

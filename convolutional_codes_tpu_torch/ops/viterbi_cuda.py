@@ -37,9 +37,11 @@ from convolutional_codes_tpu_torch.ops.viterbi import (
     KERNEL_MAX_STATES, acs_scan, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import first_argmin
 
-#: Largest constellation the ACS kernel takes: 16 points, rate 1/4 (the
-#: JAX package's ACS kernels take any M; ``csrc/acs.cuh`` CC_DISPATCH16)
-KERNEL_MAX_POINTS = 16
+#: Largest constellation the ACS kernel takes: 256 points, 8 coded bits a
+#: symbol, the widest code the JAX package registers (``models/codebook``:
+#: symlen_out 1-8); M = 2-16 have instances of their own
+#: (``csrc/acs.cuh`` CC_DISPATCH16), M = 32-256 one per S with M at run time
+KERNEL_MAX_POINTS = 256
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
 _P = ctypes.c_void_p

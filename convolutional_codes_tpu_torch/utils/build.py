@@ -3,8 +3,12 @@
 Each ``csrc/<name>.cu`` (plus the shared ``csrc/*.cuh`` headers) becomes
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, where the
 hash covers the sources and the flags, so an edited source rebuilds and
-an unchanged one loads at once.  The sources have a plain C interface and
-include no PyTorch header, which keeps a build to seconds.
+an unchanged one loads at once.  ``stack_mc_wide`` and ``fano_mc_wide``
+are ``stack_mc.cu`` and ``fano_mc.cu`` built again for codes of 5-8 coded
+bits a symbol (``-DCC_SEQ_MAX_SYMLEN=8``, ``SOURCES``), so that the
+libraries of the registered codes compile as they did without them.  The
+sources have a plain C interface and include no PyTorch header, which
+keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that every
 product is rounded before it is added, as in the reference's C code; no
@@ -41,14 +45,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: default level it spilled 4 bytes in the S = 8, M = 4 instances to stay
 #: at 48 and 56 registers)
 EXTRA_FLAGS = {name: ("-Xptxas", "-v")
-               for name in ("fano_mc", "fused_chain", "fused_chain_lin", "longframe",
-                            "longframe_mc", "stack_mc")}
+               for name in ("fano_mc", "fano_mc_wide", "fused_chain", "fused_chain_lin",
+                            "longframe", "longframe_mc", "stack_mc", "stack_mc_wide")}
 EXTRA_FLAGS["fused_chain"] += ("-Xptxas", "--register-usage-level=0")
 EXTRA_FLAGS["fused_chain_lin"] += ("-Xptxas", "--register-usage-level=0")
+#: the wide builds of the sequential kernels (csrc/sequential.cuh)
+EXTRA_FLAGS["stack_mc_wide"] += ("-DCC_SEQ_MAX_SYMLEN=8",)
+EXTRA_FLAGS["fano_mc_wide"] += ("-DCC_SEQ_MAX_SYMLEN=8",)
+
+#: libraries built from another library's source (with their own flags)
+SOURCES = {"stack_mc_wide": "stack_mc", "fano_mc_wide": "fano_mc"}
 
 #: every kernel library of the package
 LIBRARIES = ("longframe", "fused_chain", "fused_chain_lin", "mc_datagen", "stack_mc",
-             "fano_mc", "longframe_mc")
+             "fano_mc", "longframe_mc", "stack_mc_wide", "fano_mc_wide")
 
 #: wall seconds each library took to build in this process (0 when cached)
 build_seconds = {}
@@ -77,28 +87,33 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def source_path(name: str) -> Path:
+    """The ``.cu`` file library ``name`` is built from."""
+    return CSRC / f"{SOURCES.get(name, name)}.cu"
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(_flags(name)).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for path in sorted(CSRC.glob("*.cuh")) + [source_path(name)]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu``'s library is (or will be) built."""
+    """Where library ``name`` is (or will be) built."""
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load library ``name``; cached per process."""
     out = library_path(name)
     log = out.with_suffix(".log")
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(source_path(name))]
         t0 = time.time()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -13,9 +13,11 @@ The twin holds against the oracle, not ``tests/golden_model.py`` (which
 reads the JAX package's ``Code``); one more case runs a random code through
 the JAX package's XLA decoders and the port's and requires equal bits.
 
-Sizes as the JAX file: 6 frames a code on seeds 11, 22, 33, 44 and 4 on
-the big-K seeds 55, 66.  Fano runs with a budget of FANO_TPB SEARCH steps a
-bit on both sides (the JAX file: 10,000): the plain machine takes about a
+Sizes as the JAX file: 6 frames a code on seeds 11, 22, 33, 44 (and 13,
+15) and 4 on the big-K seeds 55, 66.  The draws take rates 1/2 to 1/8
+(the JAX file: 1/2 and 1/3), every width the JAX package decodes.  Fano
+runs with a budget of FANO_TPB SEARCH steps a bit on both sides (the JAX
+file: 10,000): the plain machine takes about a
 millisecond a micro-step, and these walks run to 24,000 micro-steps at the
 full budget, so the longest walks here time out, which exercises the
 timeout path as well.  Every comparison is exact.
@@ -43,7 +45,9 @@ pytestmark = pytest.mark.skipif(not native.available(), reason="no C compiler / 
 
 torch.set_num_threads(2)
 
-SEEDS = (11, 22, 33, 44)
+#: 11-44 as the JAX file; 13 and 15 draw rates 1/8 and 1/6 with the compat
+#: quirk biting
+SEEDS = (11, 22, 33, 44, 13, 15)
 BIG_K_SEEDS = (55, 66)
 #: Fano's SEARCH budget a bit in these checks, on both sides
 FANO_TPB = 50
@@ -77,9 +81,10 @@ def oracle_stack_soft_isolated(code: Code, dists: np.ndarray, tmp_path: Path) ->
 
 
 def random_code(rng: np.random.Generator, idx: int) -> Code:
-    """The JAX fuzz's ``_random_code``: K 3-6, rate 1/2 or 1/3."""
+    """The JAX fuzz's ``_random_code``, K 3-6, with rates 1/2 to 1/8: every
+    symbol width the JAX package's decoders take beyond rate 1/1."""
     K = int(rng.integers(3, 7))
-    symlen = int(rng.integers(2, 4))
+    symlen = int(rng.integers(2, 9))
     polys = tuple(int(rng.integers(1, 1 << K)) | (1 << (K - 1)) for _ in range(symlen))
     wrong = -int(rng.integers(5, 60))
     return Code(name=f"fuzz-{idx}", symlen_out=symlen, constraint_length=K,
@@ -239,9 +244,10 @@ def test_stack_alias_corner_follows_the_jax_package(tmp_path):
 
 def test_rate_quarter_code_viterbi_matches_oracle():
     """A random rate-1/4 code (16 points, K = 8): the plain Viterbi equals
-    the oracle, and the ACS kernel's limits admit it (M <= 16), as the JAX
-    package's ACS kernels take any M; before, the card refused such codes
-    that the JAX package decodes."""
+    the oracle, and the ACS kernel's limits admit it and codes of up to 8
+    coded bits a symbol (256 points), as the JAX package's ACS kernels take
+    any M; before, the card refused such codes that the JAX package
+    decodes (M > 16 until now)."""
     from convolutional_codes_tpu_torch.ops import viterbi_cuda as vc
 
     rng = np.random.default_rng(88)
@@ -256,5 +262,8 @@ def test_rate_quarter_code_viterbi_matches_oracle():
     pb, pm = viterbi_decode_hard(code, torch.as_tensor(hard_rx))
     nb, nm = native.viterbi_hard_blocks(code, hard_rx)
     assert np.array_equal(pb.numpy(), nb) and np.array_equal(pm.numpy(), nm)
-    with pytest.raises(ValueError, match="M <= 16"):
-        vc._check_code(code.replace(symlen_out=5, polynomials=code.polynomials + (0o201,)))
+    for extra in ((0o201,), (0o201, 0o311, 0o245, 0o377)):   # rates 1/5 and 1/8
+        vc._check_code(code.replace(symlen_out=4 + len(extra),
+                                    polynomials=code.polynomials + extra))
+    with pytest.raises(ValueError, match="S <= 256"):
+        vc._check_code(code.replace(constraint_length=10, polynomials=(0o1001,) * 4))

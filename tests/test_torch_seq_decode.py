@@ -124,9 +124,14 @@ def test_cuda_entries_reject_cpu_tensors_and_wrong_shapes():
                         (torch.zeros((2, 41)), False), (torch.zeros((0, 42)), False)):
             with pytest.raises(ValueError, match="must be"):
                 decode(x, soft)
+    # a rate-1/5 code's frames pass the width check (the kernels take 1-8
+    # coded bits a symbol, as the JAX decoders do) and reach the device check
     r15 = code.replace(name="r15", symlen_out=5, polynomials=(5, 3, 7, 6, 1))
-    with pytest.raises(ValueError, match="symlen_out"):
-        stack_cuda.stack_decode_cuda(r15, torch.zeros((2, 42), dtype=torch.int32), False)
+    for decode in (stack_cuda.stack_decode_cuda, fano_cuda.fano_decode_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            decode(r15, torch.zeros((2, 42), dtype=torch.int32), False)
+        with pytest.raises(ValueError, match="CUDA"):
+            decode(r15, torch.zeros((2, 42, 32)), True)
 
 
 @pytest.fixture

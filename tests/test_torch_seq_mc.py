@@ -103,9 +103,17 @@ def test_wrappers_reject_other_devices_and_shapes():
         fano_mc.mc_fano(code, 32, 1, 0, 0.05, "bsc", device="meta")
     with pytest.raises(ValueError):
         fano_mc.mc_fano_ref(code, 32, 1, 0, 0.05, "bsc", timeout_per_bit=-1)
-    with pytest.raises(NotImplementedError):
-        stack_mc.mc_stack_ref(code.replace(name="r15", symlen_out=5, polynomials=(5, 3, 7, 6, 1)),
-                              8, 1, 0, 0.05, "bsc")
+    # a rate-1/5 code without a registered 5-bit constellation: ValueError,
+    # BSC included, as the JAX package's datagen raises (it builds its stage
+    # helpers from the constellation on every channel); with one registered
+    # it decodes (tests/test_torch_wide_codes.py)
+    r15 = code.replace(name="r15", symlen_out=5, polynomials=(5, 3, 7, 6, 1))
+    for mc in (stack_mc.mc_stack_ref, fano_mc.mc_fano_ref):
+        with pytest.raises(ValueError, match="no constellation for 5 bits"):
+            mc(r15, 8, 1, 0, 0.05, "bsc")
+    with pytest.raises(ValueError, match="no constellation for 5 bits"):
+        jdg.make_datagen(jax_code(0).replace(name="r15", symlen_out=5,
+                                             polynomials=(5, 3, 7, 6, 1)), 42, 40, "bsc", "soft")
 
 
 def test_supplied_frames_entries_check_their_input():
