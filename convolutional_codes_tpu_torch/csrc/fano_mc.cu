@@ -237,7 +237,8 @@ __device__ __forceinline__ void fano_step(Walk& w, const Nodes& n, const Metrics
 template <class Nodes>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsigned* nodes,
-               float* tables, unsigned frames, const __grid_constant__ SeqDecoderParams p) {
+               float* tables, unsigned frames, const __grid_constant__ SeqDecoderParams p,
+               unsigned long long* clock) {
   const int T = p.s.T, L = p.s.L, M = p.s.M;
   Crew c;
   c.lane = threadIdx.x & 31u;
@@ -298,6 +299,7 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
     for (int i = 0; i < kStepsPerVote; ++i)
       if (!w.done) fano_step(w, n, m, enc, T);
   }
+  walk_clock_leave(clock);   // the queue was empty: the lane leaves
 }
 
 // Supplied frames b = 0 .. p.lanes-1 from the queue: syms [B][T][M]
@@ -416,6 +418,7 @@ int cc_fano_occupancy(int mc, int shared, int threads, int smem, int* info) {
 // threads * T * M float32 (the wide build: T * 2, and dev_points, the
 // constellation [M, 2] float32 in device memory, for AWGN; unused by the
 // narrow build).  timeout = timeout_per_bit * T SEARCH steps per frame.
+// clock: null, or two uint64 words {~0, 0} (sequential.cuh, walk_clock_leave).
 // Host arrays: points [M, 2] float32, polys [symlen] uint32.  Returns the
 // launch's cudaError_t.
 int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables,
@@ -423,7 +426,7 @@ int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables,
                float param, int soft, int snap, int K, int L, int T, int symlen,
                const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
                float weight, int correct, int wrong, int timeout, int shared, int threads,
-               int blocks, int smem, cudaStream_t stream) {
+               int blocks, int smem, unsigned long long* clock, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, L, T, symlen, points,
                                   polys, qmask, inv_nd);
@@ -446,7 +449,7 @@ int cc_mc_fano(long long* out, unsigned* queue, unsigned* nodes, float* tables,
   const void* k = prepare<true>(shared, smem);
   if (!k) return (int)cudaErrorInvalidValue;
   const unsigned frames = (unsigned)lanes * (unsigned)fpl;
-  void* args[] = {&out, &queue, &nodes, &tables, (void*)&frames, &p};
+  void* args[] = {&out, &queue, &nodes, &tables, (void*)&frames, &p, &clock};
   return (int)cudaLaunchKernel(k, dim3(blocks), dim3(threads), args, smem, stream);
 }
 

@@ -111,6 +111,27 @@ static inline int fill_supplied_params(SeqDecoderParams* p, int soft, int K, int
   return 0;
 }
 
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A Monte-Carlo walk launch's clock while the host traces: two
+// %globaltimer words, the first lane to leave on an empty queue (atomicMin;
+// the host sets ~0) and the last lane's exit (atomicMax; 0).  Null
+// otherwise.  A kernel argument of its own beside SeqDecoderParams (a field
+// there moved kernel 7's registers from 71-72 to 92-96), read only at a
+// lane's exit (a reading at the launch's start moved kernels 7 and 8's
+// registers too: the host times the launch with events instead).
+__device__ __forceinline__ void walk_clock_leave(unsigned long long* clock) {
+  if (clock != nullptr) {
+    const unsigned long long t = global_ns();
+    atomicMin(clock, t);
+    atomicMax(clock + 1, t);
+  }
+}
+
 __device__ __forceinline__ unsigned seq_fmix32(unsigned x) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;

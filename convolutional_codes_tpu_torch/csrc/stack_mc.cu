@@ -355,7 +355,8 @@ __device__ __forceinline__ void bank(long long* out, const SeqDecoderParams& p, 
 template <class Bits, bool kPack>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsigned* scratch,
-                float* tables, unsigned frames, const __grid_constant__ SeqDecoderParams p) {
+                float* tables, unsigned frames, const __grid_constant__ SeqDecoderParams p,
+                unsigned long long* clock) {
   using S = Slots<Bits, kPack>;
   const int T = p.s.T, L = p.s.L, M = p.s.M, nw = (L + 31) / 32;
   Crew c;
@@ -432,6 +433,7 @@ stack_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsig
     for (int i = 0; i < kStepsPerVote; ++i)
       if (!w.done) stack_step(w, f, m, enc, e_in, T, nw);
   }
+  walk_clock_leave(clock);   // the queue was empty: the lane leaves
 }
 
 // Supplied frames b = 0 .. p.lanes-1 from the queue: syms [B][T][M]
@@ -567,14 +569,15 @@ int cc_stack_occupancy(int mc, int shared, int pack, int threads, int smem, int*
 // keeps them in device memory (unused when `shared`); tables: blocks *
 // threads * T * M float32 (the wide build: T * 2, and dev_points, the
 // constellation [M, 2] float32 in device memory, for AWGN; unused by the
-// narrow build).  Host arrays: points [M, 2] float32, polys [symlen]
+// narrow build).  clock: null, or two uint64 words {~0, 0} (sequential.cuh,
+// walk_clock_leave).  Host arrays: points [M, 2] float32, polys [symlen]
 // uint32.  Returns the launch's cudaError_t.
 int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* tables,
                 const float* dev_points, int lanes, int fpl, int lane0, unsigned seed,
                 float param, int soft, int snap, int K, int L, int T, int symlen,
                 const float* points, const unsigned* polys, unsigned qmask, float inv_nd,
                 float weight, int correct, int wrong, int shared, int pack, int threads,
-                int blocks, int smem, cudaStream_t stream) {
+                int blocks, int smem, unsigned long long* clock, cudaStream_t stream) {
   SeqDecoderParams p;
   const int bad = fill_seq_params(&p.s, seed, param, soft, snap, K, L, T, symlen, points,
                                   polys, qmask, inv_nd);
@@ -596,7 +599,7 @@ int cc_mc_stack(long long* out, unsigned* queue, unsigned* scratch, float* table
   const void* k = prepare<true>(shared, pack, smem);
   if (!k) return (int)cudaErrorInvalidValue;
   const unsigned frames = (unsigned)lanes * (unsigned)fpl;
-  void* args[] = {&out, &queue, &scratch, &tables, (void*)&frames, &p};
+  void* args[] = {&out, &queue, &scratch, &tables, (void*)&frames, &p, &clock};
   return (int)cudaLaunchKernel(k, dim3(blocks), dim3(threads), args, smem, stream);
 }
 

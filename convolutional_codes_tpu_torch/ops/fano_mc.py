@@ -36,7 +36,7 @@ from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT, fano_machine
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
 from convolutional_codes_tpu_torch.ops.sequential_common import (  # noqa: F401 (the plan's limits)
     MAX_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, device_points, is_wide,
-    resident_slots, slot_metric_floats)
+    resident_slots, slot_metric_floats, walk_clock)
 from convolutional_codes_tpu_torch.ops.stack_mc import check_lanes, count_errors
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -112,7 +112,7 @@ def _lib(wide: bool = False):
     lib.cc_fano_occupancy.argtypes = [I, I, I, I, P]
     lib.cc_fano_occupancy.restype = I
     lib.cc_mc_fano.argtypes = [P, P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
-                               I, I, I, I, I, I, I, P]
+                               I, I, I, I, I, I, I, P, P]
     lib.cc_mc_fano.restype = I
     lib.cc_fano_decode.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I,
                                    I, I, I, I, P]
@@ -169,7 +169,7 @@ def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
     out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
     queue = torch.zeros(1, dtype=torch.int32, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), walk_clock(device) as clock:
         status = _lib(is_wide(code)).cc_mc_fano(
             out.data_ptr(), queue.data_ptr(), nodes.data_ptr(), tables.data_ptr(),
             dev_points.data_ptr(), lanes, fpl,
@@ -178,7 +178,8 @@ def _launch(code: Code, lanes: int, fpl: int, seed: int, param, channel: str,
             points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
             float(code.fano_metric_weight), int(code.fano_bit_metrics[0]),
             int(code.fano_bit_metrics[1]), timeout, int(plan.nodes_shared),
-            plan.threads, blocks, plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
+            plan.threads, blocks, plan.smem_bytes, None if clock is None else clock.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     check_status(status, "fano_mc")
     mc_fano.launches += 1
     return out

@@ -21,12 +21,14 @@ Fano) share the card's limits below and :func:`resident_slots`.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Tuple
 
 import torch
 
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
+from convolutional_codes_tpu_torch.utils import profiling
 from convolutional_codes_tpu_torch.utils.bitops import parity32, popcount32
 
 #: shared memory of one H100 SM and the most one block may take, in bytes;
@@ -65,6 +67,29 @@ def device_points(code: Code, channel: str, device) -> torch.Tensor:
     if channel != "awgn" or not is_wide(code):
         return torch.zeros(1, dtype=torch.float32, device=device)
     return code_tables(code, device).points.contiguous()
+
+
+@contextlib.contextmanager
+def walk_clock(device):
+    """The clock of the Monte-Carlo walk launch enqueued inside the block,
+    while a profiler session records: yields the kernels' ``clock`` words
+    (``walk_clock_leave`` in ``csrc/sequential.cuh``: the first lane to
+    leave on an empty queue, the last lane's exit) and times the launch
+    with a pair of CUDA events around it, handed to ``utils/profiling`` as
+    the pending counters ``walk_launch_ns`` (the events' interval) and
+    ``walk_tail_ns`` (first empty to last exit).  Yields None otherwise,
+    which the kernels take as no clock."""
+    if not profiling.tracing():
+        yield None
+        return
+    words = torch.zeros(2, dtype=torch.int64, device=device)
+    words[0] = -1                                        # ~0 for atomicMin
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    yield words
+    end.record()
+    profiling.count_later(words, walk_launch_ns=lambda w: round(start.elapsed_time(end) * 1e6),
+                          walk_tail_ns=lambda w: w[1] - w[0])
 
 
 def resident_slots(threads: int, per_slot: int) -> int:

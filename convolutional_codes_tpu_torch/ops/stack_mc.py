@@ -39,7 +39,8 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.mc_datagen import check_args, frames_host, seq_params
 from convolutional_codes_tpu_torch.ops.sequential_common import (
-    MAX_THREADS, SMEM_PER_BLOCK, device_points, is_wide, resident_slots, slot_metric_floats)
+    MAX_THREADS, SMEM_PER_BLOCK, device_points, is_wide, resident_slots, slot_metric_floats,
+    walk_clock)
 from convolutional_codes_tpu_torch.ops.stack import STACK_DEPTH, stack_machine
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -153,7 +154,7 @@ def _lib(wide: bool = False):
     lib.cc_stack_occupancy.argtypes = [I, I, I, I, I, P]
     lib.cc_stack_occupancy.restype = I
     lib.cc_mc_stack.argtypes = [P, P, P, P, P, I, I, I, U, F, I, I, I, I, I, I, P, P, U, F, F,
-                                I, I, I, I, I, I, I, P]
+                                I, I, I, I, I, I, I, P, P]
     lib.cc_mc_stack.restype = I
     lib.cc_stack_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P, U, F, I, I, I, I,
                                     I, I, I, P]
@@ -223,7 +224,7 @@ def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
     out = torch.zeros((3, lanes), dtype=torch.int64, device=device)
     queue = torch.zeros(1, dtype=torch.int32, device=device)
     points, polys, qmask, inv_nd = seq_params(code, channel, device)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), walk_clock(device) as clock:
         status = _lib(is_wide(code)).cc_mc_stack(
             out.data_ptr(), queue.data_ptr(), scratch.data_ptr(), tables.data_ptr(),
             dev_points.data_ptr(), lanes, frames_per_lane, int(lane0),
@@ -231,7 +232,7 @@ def mc_stack(code: Code, lanes: int, frames_per_lane: int, seed: int, param,
             code.constraint_length, code.block_length, T, code.symlen_out, points.ctypes.data, polys.ctypes.data, qmask, inv_nd,
             float(code.metric_weight), int(code.bit_metrics[0]),
             int(code.bit_metrics[1]), *plan_args(plan), blocks, plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream)
+            None if clock is None else clock.data_ptr(), torch.cuda.current_stream().cuda_stream)
     check_status(status, "stack_mc")
     mc_stack.launches += 1
     return out

@@ -10,7 +10,10 @@ with one channel parameter per group of slots.
 On a mesh, one process launches every slot it owns and moves on, so slots
 on distinct cards overlap; the counters stay on each slot's device until
 one host reduction in int64 (the JAX package's ``psum``), summed over
-processes with ``all_reduce`` where the mesh spans several.  Slot ``d`` of
+processes with ``all_reduce`` where the mesh spans several.  While a
+profiler session records (``utils/profiling.py``), each kernel 3 launch is
+the span ``mc_launch`` and the counters' reduction and reads to the host
+``mc_readback``.  Slot ``d`` of
 the frames axis draws from the seed ``(seed * 1315423911 + d) &
 0x7FFFFFFF`` (the JAX package's fused path, montecarlo.py:238-240), for
 the fused kernel and for the modular chain's generators alike, so a
@@ -27,6 +30,7 @@ import torch
 from convolutional_codes_tpu_torch.ops.fused_chain import (
     MAX_POINTS, MAX_STATES, MAX_SYMBOLS, mc_chain_viterbi)
 from convolutional_codes_tpu_torch.parallel.mesh import Mesh
+from convolutional_codes_tpu_torch.utils.profiling import annotate
 
 #: (generator, param) -> (bit_errors, frame_errors, bits) — see sim.chain.
 StepFn = Callable
@@ -74,9 +78,10 @@ def _accumulate_slots(step: Callable[[torch.device], StepFn], nsteps: int,
         for k, (dev, _, r) in enumerate(slot_seeds):
             out = steps[dev](gens[k], params[r])
             acc[k] = [a + o for a, o in zip(acc[k], out)]
-    counts = torch.zeros((3, len(params)), dtype=torch.int64)
-    for (_, _, r), a in zip(slot_seeds, acc):   # the host reduction
-        counts[:, r] += torch.tensor([int(x) for x in a], dtype=torch.int64)
+    with annotate("mc_readback"):
+        counts = torch.zeros((3, len(params)), dtype=torch.int64)
+        for (_, _, r), a in zip(slot_seeds, acc):   # the host reduction
+            counts[:, r] += torch.tensor([int(x) for x in a], dtype=torch.int64)
     return counts
 
 
@@ -89,7 +94,8 @@ def sharded_accumulate(step: StepFn, nsteps: int, generator: torch.Generator, pa
     for _ in range(nsteps):   # counters stay on the device until the end
         sbe, sfe, snb = step(generator, param)
         be, fe, nb = be + sbe, fe + sfe, nb + snb
-    return int(be), int(fe), int(nb)
+    with annotate("mc_readback"):
+        return int(be), int(fe), int(nb)
 
 
 def frames_accumulate(step: Callable[[torch.device], StepFn], nsteps: int, seed: int,
@@ -155,13 +161,16 @@ def _fused_counts(code, nsteps: int, slots, params, batch: int, channel: str,
     int64 counters [3, points] after one host reduction."""
     outs = []
     for dev, seed, r in slots:   # launches only: distinct cards overlap
-        be, fe = mc_chain_viterbi(code, batch, nsteps, seed, params[r], channel,
-                                  block_lanes=min(1024, batch), demapper=demapper,
-                                  device=dev)
-        outs.append((r, be.sum(dtype=torch.int64), fe.sum(dtype=torch.int64)))
-    counts = torch.zeros((3, len(params)), dtype=torch.int64)
-    for r, be, fe in outs:
-        counts[:, r] += torch.tensor([int(be), int(fe), batch * code.block_length * nsteps])
+        with annotate("mc_launch"):
+            be, fe = mc_chain_viterbi(code, batch, nsteps, seed, params[r], channel,
+                                      block_lanes=min(1024, batch), demapper=demapper,
+                                      device=dev)
+        with annotate("mc_readback"):
+            outs.append((r, be.sum(dtype=torch.int64), fe.sum(dtype=torch.int64)))
+    with annotate("mc_readback"):
+        counts = torch.zeros((3, len(params)), dtype=torch.int64)
+        for r, be, fe in outs:
+            counts[:, r] += torch.tensor([int(be), int(fe), batch * code.block_length * nsteps])
     return counts
 
 
@@ -176,8 +185,9 @@ def fused_mc_accumulate(code, nsteps: int, seed: int, param, batch: int,
     Returns (bit_errors, frame_errors, bits)."""
     if mesh is None or "frames" not in mesh.axis_names:
         slots = [(torch.device(device), int(seed) & 0x7FFFFFFF, 0)]
-        return tuple(int(x) for x in _fused_counts(code, nsteps, slots, [param], batch,
-                                                    channel, demapper)[:, 0])
+        counts = _fused_counts(code, nsteps, slots, [param], batch, channel, demapper)
+        with annotate("mc_readback"):
+            return tuple(int(x) for x in counts[:, 0])
     be, fe, nb = fused_grid_accumulate(
         code, nsteps, [[device_seed(seed, d) for d in range(mesh.shape["frames"])]],
         [param], batch, mesh, channel, demapper, axes=("frames",))

@@ -10,7 +10,10 @@ counters of the serial same-seed ``mc_stack``/``mc_fano`` run exactly
 (the JAX package's ``parallel/seq_grid.py``).  R points (same lanes and
 frames a lane) run side by side on ``slots / R`` slots each, sweep-major
 and frames-minor.  The per-lane counters stay on each slot's device until
-one host reduction per point in int64.
+one host reduction per point in int64.  While a profiler session records
+(``utils/profiling.py``), each launch is the span ``mc_launch``, the
+reduction and its read to the host ``mc_readback``, and the walks'
+iterations (the counters' third row) add to the counter ``walk_iters``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
 from convolutional_codes_tpu_torch.ops.fano_mc import mc_fano
 from convolutional_codes_tpu_torch.ops.stack_mc import mc_stack
 from convolutional_codes_tpu_torch.parallel.mesh import Mesh
+from convolutional_codes_tpu_torch.utils import profiling
 
 
 def seq_mc_grid(decoder: str, code: Code, lanes: int, frames_per_lane: int,
@@ -61,12 +65,17 @@ def seq_mc_grid(decoder: str, code: Code, lanes: int, frames_per_lane: int,
         if rank != mesh.rank:
             continue
         r = k // dpp
-        out = mc(code, Bl, frames_per_lane, seeds[r], params[r], channel=channel,
-                 demapper=demapper, device=dev, lane0=(k % dpp) * Bl, **kw)
-        outs.append((r, out[:2].sum(dim=1)))   # launches only: distinct cards overlap
-    counts = torch.zeros((3, R), dtype=torch.int64)
-    for r, c in outs:   # the host reduction
-        counts[:2, r] += c.cpu()
-    counts = mesh.sum_over_processes(counts)
+        with profiling.annotate("mc_launch"):
+            out = mc(code, Bl, frames_per_lane, seeds[r], params[r], channel=channel,
+                     demapper=demapper, device=dev, lane0=(k % dpp) * Bl, **kw)
+        with profiling.annotate("mc_readback"):   # launches only: distinct cards overlap
+            outs.append((r, out.sum(dim=1)))
+    with profiling.annotate("mc_readback"):
+        counts = torch.zeros((3, R), dtype=torch.int64)
+        for r, c in outs:   # the host reduction
+            counts[:, r] += c.cpu()
+        if profiling.tracing():
+            profiling.count("walk_iters", counts[2].sum())
+        counts = mesh.sum_over_processes(counts)
     bits = np.full(R, lanes * frames_per_lane * code.block_length, np.int64)
     return counts[0].numpy(), counts[1].numpy(), bits

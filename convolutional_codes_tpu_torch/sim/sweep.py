@@ -29,7 +29,10 @@ counters exactly.
 ``trace_dir`` captures one profiler trace a point (``utils/profiling.py``)
 under ``trace_dir/point_<p>``, its work annotated ``sweep_point_<p>``, as
 the reference's sweep does; points that run side by side share one trace,
-written under each of their directories.
+written under each of their directories.  Under any profiler session the
+preamble is the span ``sweep_plan`` and each point's record
+``sweep_record``; the legs' launches and read-backs are spans of
+``parallel/`` (``mc_launch``, ``mc_readback``).
 """
 
 from __future__ import annotations
@@ -260,72 +263,73 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
     state).  With a mesh, a chunk simulates ``frames`` axis size times the
     bits, and the pieces that run on one device run on the mesh's first
     slot."""
-    code = spec.resolve_code()
-    points = spec.resolve_points()
-    device = torch.device(mesh.slots()[0][0] if mesh is not None else device)
-    frames_mesh = mesh if mesh is not None and "frames" in mesh.axis_names else None
-    ndev = frames_axis_size(mesh)
-    uncoded = spec.channel == "uncoded"
-    frames = spec.frames_per_step
+    with annotate("sweep_plan"):   # the code, the fingerprint, the checkpoint, the steps
+        code = spec.resolve_code()
+        points = spec.resolve_points()
+        device = torch.device(mesh.slots()[0][0] if mesh is not None else device)
+        frames_mesh = mesh if mesh is not None and "frames" in mesh.axis_names else None
+        ndev = frames_axis_size(mesh)
+        uncoded = spec.channel == "uncoded"
+        frames = spec.frames_per_step
 
-    sequential = not uncoded and spec.decoder in ("stack", "fano")
-    frame_bits = code.symlen_out if uncoded else code.block_length
-    if uncoded:
-        to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=code.symlen_out))
-    else:
-        to_param = (lambda p: float(awgn_sigma(p))) if spec.channel == "awgn" else float
+        sequential = not uncoded and spec.decoder in ("stack", "fano")
+        frame_bits = code.symlen_out if uncoded else code.block_length
+        if uncoded:
+            to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=code.symlen_out))
+        else:
+            to_param = (lambda p: float(awgn_sigma(p))) if spec.channel == "awgn" else float
 
-    spec_fp = _spec_fingerprint(spec, code)
-    done_points = _load_checkpoint(checkpoint_path, spec_fp) if checkpoint_path else {}
+        spec_fp = _spec_fingerprint(spec, code)
+        done_points = _load_checkpoint(checkpoint_path, spec_fp) if checkpoint_path else {}
 
-    use_fused = (not uncoded and fused_mc_eligible(
-        code, spec.channel, spec.decoder, spec.demapper))
-    eff_frames = max(1024, -(-frames // 1024) * 1024) if use_fused else frames
-    step = None
-    if uncoded or not (sequential or use_fused):
-        # the chain's steps are built for one device: one per distinct slot device
-        build = ((lambda dev: make_uncoded_step(code.symlen_out, frames, dev)) if uncoded
-                 else (lambda dev: make_point_step(code, spec.channel, spec.decoder,
-                                                   spec.demapper, frames, device=dev)))
-        step = per_device(build, frames_mesh) if frames_mesh else build(device)
-    bits_per_call = eff_frames * frame_bits * ndev
-    # chunk the accumulation so int32 per-lane counters cannot overflow
-    chunk = max(1, (1 << 30) // max(1, eff_frames * frame_bits))
+        use_fused = (not uncoded and fused_mc_eligible(
+            code, spec.channel, spec.decoder, spec.demapper))
+        eff_frames = max(1024, -(-frames // 1024) * 1024) if use_fused else frames
+        step = None
+        if uncoded or not (sequential or use_fused):
+            # the chain's steps are built for one device: one per distinct slot device
+            build = ((lambda dev: make_uncoded_step(code.symlen_out, frames, dev)) if uncoded
+                     else (lambda dev: make_point_step(code, spec.channel, spec.decoder,
+                                                       spec.demapper, frames, device=dev)))
+            step = per_device(build, frames_mesh) if frames_mesh else build(device)
+        bits_per_call = eff_frames * frame_bits * ndev
+        # chunk the accumulation so int32 per-lane counters cannot overflow
+        chunk = max(1, (1 << 30) // max(1, eff_frames * frame_bits))
 
-    records_by_idx = {}
+        # plan: (index, point, param, nsteps) for every point not checkpointed
+        records_by_idx = {}
+        pending = []
+        for i, point in enumerate(points):
+            if point in done_points:
+                records_by_idx[i] = PointRecord(**done_points[point])
+                continue
+            pending.append((i, point, to_param(point),
+                            max(1, -(-target_bits(spec, point) // bits_per_call))))
 
     def finish_point(i, point, param, be, fe, nb, wall, warm_bits, warm_wall):
-        rate = (warm_bits / warm_wall if warm_wall > 0
-                else (nb / wall if wall > 0 else float("inf")))
-        rec = PointRecord(
-            code=f"uncoded-{code.symlen_out}bit" if uncoded else code.name,
-            channel=spec.channel,
-            decoder="argmin" if uncoded else spec.decoder,
-            demapper=spec.demapper, point=float(point), param=param,
-            bits=nb, bit_errors=be, frame_errors=fe,
-            frames=nb // frame_bits, ber=be / nb, fer=fe / (nb // frame_bits),
-            wall_s=wall, bits_per_s=rate,
-            warm_bits=warm_bits, warm_wall_s=warm_wall)
-        records_by_idx[i] = rec
-        if verbose:
-            print(f"[{spec.channel}/{spec.decoder}/{spec.demapper} {code.name}] "
-                  f"point={point:g} bits={nb:.3g} BER={rec.ber:.6e} "
-                  f"FER={rec.fer:.3e} {rec.bits_per_s:.3e} bits/s", flush=True)
-        if checkpoint_path:
-            done_points[point] = rec.to_dict()
-            payload = {str(k): v for k, v in done_points.items()}
-            payload["__spec__"] = spec_fp
-            with open(checkpoint_path, "w") as f:
-                json.dump(payload, f)
-
-    # plan: (index, point, param, nsteps) for every point not checkpointed
-    pending = []
-    for i, point in enumerate(points):
-        if point in done_points:
-            records_by_idx[i] = PointRecord(**done_points[point])
-            continue
-        pending.append((i, point, to_param(point),
-                        max(1, -(-target_bits(spec, point) // bits_per_call))))
+        with annotate("sweep_record"):
+            rate = (warm_bits / warm_wall if warm_wall > 0
+                    else (nb / wall if wall > 0 else float("inf")))
+            rec = PointRecord(
+                code=f"uncoded-{code.symlen_out}bit" if uncoded else code.name,
+                channel=spec.channel,
+                decoder="argmin" if uncoded else spec.decoder,
+                demapper=spec.demapper, point=float(point), param=param,
+                bits=nb, bit_errors=be, frame_errors=fe,
+                frames=nb // frame_bits, ber=be / nb, fer=fe / (nb // frame_bits),
+                wall_s=wall, bits_per_s=rate,
+                warm_bits=warm_bits, warm_wall_s=warm_wall)
+            records_by_idx[i] = rec
+            if verbose:
+                print(f"[{spec.channel}/{spec.decoder}/{spec.demapper} {code.name}] "
+                      f"point={point:g} bits={nb:.3g} BER={rec.ber:.6e} "
+                      f"FER={rec.fer:.3e} {rec.bits_per_s:.3e} bits/s", flush=True)
+            if checkpoint_path:
+                done_points[point] = rec.to_dict()
+                payload = {str(k): v for k, v in done_points.items()}
+                payload["__spec__"] = spec_fp
+                with open(checkpoint_path, "w") as f:
+                    json.dump(payload, f)
 
     def chunks(nsteps):
         """(chunk index, steps) of a point: a point that fits one chunk runs

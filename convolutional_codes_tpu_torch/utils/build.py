@@ -33,6 +33,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from convolutional_codes_tpu_torch.utils.profiling import annotate
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -107,26 +109,28 @@ def library_path(name: str) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load library ``name``; cached per process."""
-    out = library_path(name)
-    log = out.with_suffix(".log")
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(source_path(name))]
-        t0 = time.time()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        build_log[name] = proc.stdout + proc.stderr
-        log.write_text(build_log[name])   # before the library: a library has its log
-        os.replace(tmp, out)
-        build_seconds[name] = time.time() - t0
-    else:
-        build_seconds.setdefault(name, 0.0)
-        build_log[name] = log.read_text() if log.exists() else ""
-    return ctypes.CDLL(str(out))
+    """Build (if needed) and load library ``name``; cached per process.
+    While a profiler session records, the span ``build_load``."""
+    with annotate("build_load"):
+        out = library_path(name)
+        log = out.with_suffix(".log")
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(source_path(name))]
+            t0 = time.time()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {name}.cu "
+                                   f"(exit {proc.returncode}):\n{proc.stderr}")
+            build_log[name] = proc.stdout + proc.stderr
+            log.write_text(build_log[name])   # before the library: a library has its log
+            os.replace(tmp, out)
+            build_seconds[name] = time.time() - t0
+        else:
+            build_seconds.setdefault(name, 0.0)
+            build_log[name] = log.read_text() if log.exists() else ""
+        return ctypes.CDLL(str(out))
 
 
 def build_all() -> None:

@@ -1,5 +1,12 @@
 """Tracing and profiling hooks: the port's copy of the JAX package's
-``utils/profiling.py``.
+``utils/profiling.py``, with the port's own spans and counters.
+
+One switch: spans and counters record only while a ``torch.profiler``
+session is active (:func:`trace`, ``run_sweep(trace_dir=...)``, the CLI's
+``--trace``, or any session a caller opens around the port, as the
+benchmark's ``--trace 1`` does).  Without one, :func:`annotate` returns one
+shared no-op context and :func:`count` / :func:`count_later` return at
+once: one check, no allocation, no ``record_function``.
 
 * :func:`trace` captures a ``torch.profiler`` trace of the enclosed block:
   host activity always, and the card's kernels (through CUPTI, the ones
@@ -8,10 +15,24 @@
   under ``log_dir`` (TensorBoard's PyTorch profiler plugin reads the
   directory; ``chrome://tracing`` or Perfetto open the file), and does
   nothing when ``log_dir`` is falsy.
-* :func:`annotate` names a region in the timeline:
-  ``torch.profiler.record_function`` and, where CUDA is available, an NVTX
-  range.
-* :class:`ThroughputMeter` is the decoded-bits/s meter, as it is there.
+* :func:`annotate` names a region in the timeline, a
+  ``torch.profiler.record_function`` span: the profiler keeps it in memory,
+  writes it at the end, and stamps it on the clock of the card's kernels.
+  The port's spans, nested on the host thread: ``sweep_point_<p>`` (a
+  point's work), ``sweep_plan`` (``run_sweep``'s preamble), ``mc_launch``
+  (the host's preparation and enqueue of one Monte-Carlo kernel launch),
+  ``mc_readback`` (the counters' reduction launches and their blocking
+  reads to the host), ``sweep_record`` (a point's record), ``build_load``
+  (a kernel library built or loaded).
+* :func:`count` and :func:`count_later` add to process-wide counters,
+  read with :func:`counters` and cleared with :func:`reset_counters`:
+  ``walk_iters`` (the walks' iterations, ``parallel/seq_grid.py``),
+  ``walk_launch_ns`` and ``walk_tail_ns`` (a walk launch's time on the
+  card, from CUDA events around it, and the part of it after its first
+  lane found the frame queue empty, from the kernels' own clock words:
+  ``ops/sequential_common.walk_clock``).  A counter whose value lives on
+  the device stays there until :func:`counters` reads it, so tracing adds
+  no host sync to the traced work.
 
 Not ported: ``enable_nan_debugging``, which sets ``jax_debug_nans`` — a
 check XLA compiles into a traced graph.  The port runs eager, forward-only
@@ -23,11 +44,19 @@ checks backward passes, which the port has none of).
 from __future__ import annotations
 
 import contextlib
-import time
-from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+_counts: Dict[str, int] = {}
+_pending: List[Tuple[torch.Tensor, Dict[str, Callable[[torch.Tensor], int]]]] = []
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` session is recording: the one switch of
+    the port's spans and counters."""
+    return torch._C._autograd._profiler_enabled()
 
 
 @contextlib.contextmanager
@@ -49,40 +78,40 @@ def trace(log_dir: Optional[str]):
             torch.cuda.synchronize()   # the enclosed kernels end inside the trace
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named region visible in profiler timelines (and NVTX, with CUDA)."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+    """A span ``name`` in the profiler's timeline while :func:`tracing`;
+    otherwise one shared context that does nothing."""
+    if not tracing():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
-@dataclass
-class ThroughputMeter:
-    """Decoded-bits/s meter with warmup discard."""
+def count(name: str, value: int) -> None:
+    """Add ``value`` to counter ``name`` while :func:`tracing`."""
+    if tracing():
+        _counts[name] = _counts.get(name, 0) + int(value)
 
-    name: str = "chain"
-    warmup: int = 1
-    _bits: List[int] = field(default_factory=list)
-    _times: List[float] = field(default_factory=list)
-    _t0: Optional[float] = None
 
-    def start(self):
-        self._t0 = time.time()
+def count_later(words: torch.Tensor, **reads: Callable[[torch.Tensor], int]) -> None:
+    """While :func:`tracing`, keep ``words`` (device memory a kernel writes)
+    and, when :func:`counters` is next called, add ``read(host copy of
+    words)`` to each counter named in ``reads``."""
+    if tracing():
+        _pending.append((words, reads))
 
-    def stop(self, bits: int):
-        assert self._t0 is not None, "start() first"
-        self._times.append(time.time() - self._t0)
-        self._bits.append(bits)
-        self._t0 = None
 
-    @property
-    def bits_per_s(self) -> float:
-        b = self._bits[self.warmup:] or self._bits
-        t = self._times[self.warmup:] or self._times
-        return sum(b) / sum(t) if t and sum(t) > 0 else float("nan")
+def counters() -> Dict[str, int]:
+    """The counters so far.  Reads the pending device words first, which
+    waits for the kernels that write them: call it after the traced work."""
+    for words, reads in _pending:
+        host = words.cpu()
+        for name, read in reads.items():
+            _counts[name] = _counts.get(name, 0) + int(read(host))
+    _pending.clear()
+    return dict(_counts)
 
-    def report(self) -> str:
-        return f"{self.name}: {self.bits_per_s:.3e} decoded bits/s"
+
+def reset_counters() -> None:
+    """Clear every counter, the pending ones included."""
+    _counts.clear()
+    _pending.clear()

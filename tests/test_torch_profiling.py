@@ -4,6 +4,7 @@ one ``torch.profiler`` Chrome trace a point under ``DIR/point_<p>``, each
 naming its ``sweep_point_<p>`` annotation; points run side by side (the
 sweep x frames grid) each get the shared trace.  On the CPU the traces
 hold host activity only; the card's kernels are checked in chip_smoke.py.
+The port's own spans and counters: ``test_torch_tracing.py``.
 """
 
 import json
@@ -33,17 +34,6 @@ def test_trace_and_annotate(tmp_path):
     with profiling.trace(str(tmp_path / "t")), profiling.annotate("region_x"):
         torch.ones(64).cumsum(0)
     assert "region_x" in _trace_names(tmp_path / "t")
-
-
-def test_throughput_meter():
-    m = profiling.ThroughputMeter("x", warmup=1)
-    assert m.bits_per_s != m.bits_per_s                      # nan before any stop
-    for bits in (10, 1000):
-        m.start()
-        m.stop(bits)
-    assert m.bits_per_s > 0 and m.report().startswith("x: ")
-    with pytest.raises(AssertionError):
-        m.stop(1)
 
 
 @pytest.mark.parametrize("decoder", ["viterbi", "stack"])
