@@ -1595,8 +1595,8 @@ def run_supplied_path(torch, dev):
     return results
 
 
-#: the mesh path's sequential grid: 8192 global lanes, code 0, one frame a
-#: lane, two points (seeds SEQ_GRID_SEEDS) per channel
+#: the mesh path's sequential grid: 8192 global lanes, code 0, two points
+#: (seeds SEQ_GRID_SEEDS) per channel in two slices of one and two frames a lane
 SEQ_GRID = (("awgn", 4.0), ("bsc", 0.03))
 SEQ_GRID_SEEDS = (101, 102)
 #: the headline's per-device shape: 2^20 lanes, MESH_FUSED_STEPS in-kernel steps
@@ -1635,14 +1635,16 @@ def run_mesh_path(torch, dev):
     for decoder, mc in (("stack", mc_stack), ("fano", mc_fano)):
         for channel, point in SEQ_GRID:
             param = float(awgn_sigma(point)) if channel == "awgn" else point
-            be, fe, nb = seq_mc_grid(decoder, code, 8192, 1, SEQ_GRID_SEEDS, [param] * 2, grid,
-                                     channel=channel)
-            serial = [mc(code, 8192, 1, s, param, channel, device=dev)[:2].sum(1).tolist()
-                      for s in SEQ_GRID_SEEDS]
+            # a cold slice of one frame a lane and a warm one of two, side by side
+            slices = [(1, SEQ_GRID_SEEDS), (2, [s ^ 0x2A5A5A5A for s in SEQ_GRID_SEEDS])]
+            got = seq_mc_grid(decoder, code, 8192, slices, [param] * 2, grid, channel=channel)
+            got = [[[int(b), int(f)] for b, f in zip(sl.bit_errors, sl.frame_errors)]
+                   for sl in got]
+            serial = [[mc(code, 8192, fpl, s, param, channel, device=dev)[:2].sum(1).tolist()
+                       for s in seeds] for fpl, seeds in slices]
             print(f"  seq_mc_grid {decoder} code 0 {channel} {point:g}, 8192 lanes x 2 points "
-                  f"on {grid.shape}: bit/frame errors {be.tolist()} {fe.tolist()}, serial "
-                  f"{serial}")
-            require([[int(b), int(f)] for b, f in zip(be, fe)] == serial and min(be) > 0,
+                  f"x (1, 2) frames on {grid.shape}: bit/frame errors {got}, serial {serial}")
+            require(got == serial and min(b for sl in got for b, _ in sl) > 0,
                     f"seq_mc_grid {decoder} {channel} differs from the serial runs")
 
     sigma8, B = float(awgn_sigma(8.0)), 1 << 20

@@ -171,9 +171,9 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     if n_devices % 2 == 0 and n_devices > 1:   # both sequential kernels, two points
         sigma = float(awgn_sigma(6.0))
         for decoder in ("fano", "stack"):
-            _, _, sn = seq_mc_grid(decoder, code, n_devices * 4, 1, [3, 4], [sigma, sigma],
-                                   mesh, channel="awgn", timeout_per_bit=20)
-            check(int(sn.sum()) == 2 * n_devices * 4 * L, f"{decoder} grid")
+            (cold,) = seq_mc_grid(decoder, code, n_devices * 4, [(1, [3, 4])], [sigma, sigma],
+                                  mesh, channel="awgn", timeout_per_bit=20)
+            check(int(cold.bits.sum()) == 2 * n_devices * 4 * L, f"{decoder} grid")
 
     dryrun_streaming(n_devices, devs)
     print(f"dryrun_multichip({n_devices}): ok on mesh {mesh.shape}")

@@ -16,7 +16,10 @@ Legs (as in the reference package's ``sim/sweep.py``):
     on the CPU) through ``parallel/seq_grid.py``, on one slot without a
     mesh, with the reference's frame addressing (:func:`seq_plan`,
     :func:`sequential_points`), so BSC counters equal the reference's TPU
-    records; the reference's VMEM gates on T*M do not apply here;
+    records; a point's cold and warm slices are enqueued together, the
+    warm one on a side stream, so that on the card the point waits for one
+    drain of its slowest walks rather than one a slice, and both come back
+    in one read-back; the reference's VMEM gates on T*M do not apply here;
   * modular: other Viterbi configs run the step chain of ``sim/chain.py``;
   * uncoded: the nearest-point baseline.
 On a mesh: points of equal step counts run side by side over the ``sweep``
@@ -138,7 +141,10 @@ class PointRecord:
     bits_per_s: float       # warm steady-state rate when measurable
     #: the first chunk of a point pays kernel build and warm-up; bits/wall
     #: of the remaining chunks are the steady-state numbers (0/0.0 when the
-    #: point ran as one chunk, and bits_per_s is then the total-wall rate)
+    #: point ran as one chunk, and bits_per_s is then the total-wall rate).
+    #: A stack/Fano point's warm slice runs beside its cold one: its
+    #: warm_wall_s is the warm launch's time on the card (CUDA events on its
+    #: stream; the host clock on the CPU), not a host wall of its own
     warm_bits: int = 0
     warm_wall_s: float = 0.0
 
@@ -201,28 +207,31 @@ def sequential_points(spec: SweepSpec, code: Code, batch, mesh
                       ) -> List[Tuple[int, int, int, int, float]]:
     """R = ``len(batch)`` stack/Fano points ``(index, point, param)`` of
     one :func:`seq_plan` side by side over ``mesh`` (``seq_mc_grid``; a
-    one-slot mesh runs them one launch each): a cold slice of one frame per
-    lane with the point seeds, then a warm slice of ``fpl - 1`` frames per
-    lane with the seeds xored by :data:`WARM_SEED_XOR` (reference
-    sim/sweep.py:558-585).  Frame ``k`` of global lane ``g`` is ``gid = g *
-    fpl + k`` within each slice.  Returns per point (bit_errors,
-    frame_errors, bits, warm_bits, warm_wall_s), the warm wall amortised
-    over the points."""
+    one-slot mesh runs them one launch a slice each): a cold slice of one
+    frame per lane with the point seeds, and a warm slice of ``fpl - 1``
+    frames per lane with the seeds xored by :data:`WARM_SEED_XOR`
+    (reference sim/sweep.py:558-585), enqueued together so that the two
+    run side by side on the card, with one read-back for both.  Frame ``k``
+    of global lane ``g`` is ``gid = g * fpl + k`` within each slice.
+    Returns per point (bit_errors, frame_errors, bits, warm_bits,
+    warm_wall_s): ``warm_wall_s`` is the warm slice's time on the card
+    (CUDA events around its launches; the host clock on the CPU), spread
+    over the R points."""
     lanes, fpl = seq_plan(target_bits(spec, batch[0][1]), code.block_length)
     kw = dict(channel=spec.channel, demapper=spec.demapper)
     if spec.decoder == "fano":
         kw["timeout_per_bit"] = spec.timeout_per_bit
     prms = [param for _, _, param in batch]
     seeds = [_chunk_seed(spec.seed, i, 0) for i, _, _ in batch]
+    slices = [(1, seeds)]            # the cold slice pays the warm-up
+    if fpl > 1:
+        slices.append((fpl - 1, [s ^ WARM_SEED_XOR for s in seeds]))
     # the counters come back to the host: the device is done
-    be, fe, nb = seq_mc_grid(spec.decoder, code, lanes, 1, seeds, prms, mesh, **kw)
+    outs = seq_mc_grid(spec.decoder, code, lanes, slices, prms, mesh, **kw)
+    be, fe, nb = (sum(out[j] for out in outs) for j in range(3))
     warm_bits, warm_wall = np.zeros_like(nb), 0.0
-    if fpl > 1:                      # the cold slice pays the warm-up
-        t0 = time.time()
-        b2, f2, warm_bits = seq_mc_grid(spec.decoder, code, lanes, fpl - 1,
-                                        [s ^ WARM_SEED_XOR for s in seeds], prms, mesh, **kw)
-        warm_wall = (time.time() - t0) / len(batch)
-        be, fe, nb = be + b2, fe + f2, nb + warm_bits
+    if fpl > 1:
+        warm_bits, warm_wall = outs[1].bits, outs[1].seconds / len(batch)
     return [(int(be[r]), int(fe[r]), int(nb[r]), int(warm_bits[r]), warm_wall)
             for r in range(len(batch))]
 

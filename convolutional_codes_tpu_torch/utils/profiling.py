@@ -30,9 +30,12 @@ once: one check, no allocation, no ``record_function``.
   ``walk_launch_ns`` and ``walk_tail_ns`` (a walk launch's time on the
   card, from CUDA events around it, and the part of it after its first
   lane found the frame queue empty, from the kernels' own clock words:
-  ``ops/sequential_common.walk_clock``).  A counter whose value lives on
-  the device stays there until :func:`counters` reads it, so tracing adds
-  no host sync to the traced work.
+  ``ops/sequential_common.walk_clock``), ``walk_cold_ns`` and
+  ``walk_overlap_ns`` (a sequential point's cold launch's time, and the
+  time its warm launch ran beside it: ``parallel/seq_grid.py``).  A
+  counter whose value lives on the device stays there until
+  :func:`counters` reads it, so tracing adds no host sync to the traced
+  work.
 
 Not ported: ``enable_nan_debugging``, which sets ``jax_debug_nans`` — a
 check XLA compiles into a traced graph.  The port runs eager, forward-only

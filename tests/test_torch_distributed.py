@@ -48,8 +48,9 @@ out = {
                                  device="cpu"),
 }
 for dec in ("stack", "fano"):
-    out[dec] = [x.tolist() for x in seq_mc_grid(dec, code, 64, 1, [13, 14], [0.03, 0.05],
-                                                grid, channel="bsc", timeout_per_bit=20)]
+    out[dec] = [[x.tolist() for x in sl[:3]]
+                for sl in seq_mc_grid(dec, code, 64, [(1, [13, 14]), (1, [15, 16])],
+                                      [0.03, 0.05], grid, channel="bsc", timeout_per_bit=20)]
 print(json.dumps(out))
 """
 
@@ -132,7 +133,7 @@ def test_two_processes_equal_one():
         assert got["joined"] is True and (got["world"], got["rank"]) == (2, rank)
         for key in ("sharded", "fused", "stack", "fano"):
             assert got[key] == ref[key], (key, rank)
-    assert ref["sharded"][0] > 0 and min(ref["stack"][0]) > 0
+    assert ref["sharded"][0] > 0 and min(ref["stack"][0][0] + ref["stack"][1][0]) > 0
 
 
 def test_dryrun_multichip():

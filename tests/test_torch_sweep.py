@@ -137,6 +137,18 @@ def test_sequential_sweep_counters_equal_jax(decoder, points, tpb):
         assert rec.warm_bits == 1024 * 40 and rec.decoder == decoder and be > 0
 
 
+def test_two_slice_point_reports_the_warm_slice():
+    """A stack point of 1024 lanes x 3 frames: the warm slice (2 frames a
+    lane) runs in the same call as the cold one, and the record still
+    reports its bits as ``warm_bits``, its time as ``warm_wall_s`` and
+    their ratio as the rate."""
+    spec = SweepSpec(code=0, channel="bsc", decoder="stack", points=[0.03],
+                     bits_per_point=3 * 1024 * 40, seed=8)
+    (rec,) = run_sweep(spec, verbose=False, device="cpu")
+    assert rec.bits == 3 * 1024 * 40 and rec.warm_bits == 2 * 1024 * 40
+    assert 0 < rec.warm_wall_s and rec.bits_per_s == rec.warm_bits / rec.warm_wall_s
+
+
 def test_seq_plan_matches_reference():
     assert seq_plan(8e8, 40) == (8192, 2442)
     assert seq_plan(8 * 10 ** 5, 40) == (8192, 3)

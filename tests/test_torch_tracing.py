@@ -3,12 +3,15 @@ the launches and read-backs of every leg of ``run_sweep`` are spans
 (``mc_launch``, ``mc_readback``) inside their ``sweep_point_<p>``, the
 preamble and a point's record are ``sweep_plan`` and ``sweep_record``;
 ``walk_iters`` sums the walks' iteration rows; the walk kernels' clock
-words stay pending on the device until ``counters()`` reads them.  All of
+words stay pending on the device until ``counters()`` reads them; a
+point's two slices add their overlap.  All of
 it records only under a profiler session: without one, nothing opens a
 span or moves a counter.  On the CPU the traces hold host activity only.
 """
 
+import contextlib
 import json
+import time
 
 import pytest
 import torch
@@ -119,7 +122,7 @@ def test_walk_iters_equal_the_plain_rows(monkeypatch, decoder):
     kw = {"timeout_per_bit": 40} if decoder == "fano" else {}
     mesh = make_mesh({"frames": 2}, devices=[CPU] * 2)
     with profile(activities=[ProfilerActivity.CPU]):
-        seq_mc_grid(decoder, code, 32, 2, [12], [0.02], mesh, channel="bsc", **kw)
+        seq_mc_grid(decoder, code, 32, [(2, [12])], [0.02], mesh, channel="bsc", **kw)
     assert len(rows) == 2 and int(sum(r.sum() for r in rows)) >= 32 * 2 * code.num_block_symbols
     assert profiling.counters() == {"walk_iters": int(sum(r.sum() for r in rows))}
 
@@ -171,3 +174,48 @@ def test_walk_clock_while_tracing(monkeypatch):
             clock.copy_(torch.tensor([250, 400]))            # what a kernel writes
         assert len(recorded) == 2
     assert profiling.counters() == {"walk_launch_ns": 500, "walk_tail_ns": 150}
+
+
+def _slow_entry(code, lanes, frames_per_lane, seed, param, **kwargs):
+    """A kernel entry that takes a millisecond a frame a lane."""
+    time.sleep(1e-3 * frames_per_lane)
+    return torch.zeros((3, lanes), dtype=torch.int64)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_walk_overlap_counters_only_while_tracing(monkeypatch, traced):
+    """Two slices a slot add ``walk_cold_ns`` (the first slice's time) and
+    ``walk_overlap_ns`` (both in flight) under a session, and nothing
+    without one; one slice adds neither.  On the CPU the plain versions run
+    inside the call, one slice after the other: no overlap."""
+    monkeypatch.setattr(seq_grid, "mc_stack", _slow_entry)
+    mesh = make_mesh({"frames": 2}, devices=[CPU] * 2)
+    session = profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext()
+    with session:
+        seq_mc_grid("stack", get_code(0), 32, [(2, [12])], [0.02], mesh, channel="bsc")
+        assert profiling.counters().keys() == ({"walk_iters"} if traced else set())
+        cold, warm = seq_mc_grid("stack", get_code(0), 32, [(2, [12]), (3, [13])], [0.02],
+                                 mesh, channel="bsc")
+    got = profiling.counters()
+    if not traced:
+        assert got == {}
+        return
+    assert got["walk_overlap_ns"] == 0
+    # two slots, each at least its 2 ms and at most the cold slice's time
+    assert 2 * 2e6 <= got["walk_cold_ns"] <= 2 * cold.seconds * 1e9 + 1
+    assert warm.seconds >= 2 * 3e-3
+
+
+@pytest.mark.cuda
+def test_walk_overlap_within_the_cold_launch_on_a_card():
+    """On a card the warm slice runs beside the cold one: 0 <= overlap <=
+    the cold launch's time, on the sequential cell's shape of code 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the walk kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh({"frames": 1}, devices=[dev])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        seq_mc_grid("fano", get_code(0), 8192, [(1, [3]), (2, [4])], [0.05], mesh,
+                    channel="bsc", timeout_per_bit=100)
+    got = profiling.counters()
+    assert 0 <= got["walk_overlap_ns"] <= got["walk_cold_ns"] and got["walk_cold_ns"] > 0
