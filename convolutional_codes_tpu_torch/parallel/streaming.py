@@ -32,7 +32,14 @@ exponentially in the warm-up length.
 
 :func:`streaming_mc_accumulate` is the Monte-Carlo side: one fused
 long-frame kernel call (``ops/fused_longframe.py``), or one per slot of a
-mesh, each on its own time range of the same hash-addressed streams.
+mesh, each on its own time range of the same hash-addressed streams;
+:func:`stream_mc_counts`, ``run_sweep``'s stream leg, reads its counters
+back once.  While a profiler session records (``utils/profiling.py``),
+each launch is the span ``mc_launch`` and adds the counters
+``stream_windows`` (lanes x windows decoded) and ``stream_positions``
+(distinct stream positions generated: lanes x (windows x window + 2 x
+warmup)), and the counters' reduction and reads to the host are
+``mc_readback``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from convolutional_codes_tpu_torch.ops.longframe_cuda import (
 from convolutional_codes_tpu_torch.ops.viterbi import (
     BIG_METRIC, HARD_METRIC_SAT, acs_forward, initial_metrics, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import first_argmin
+from convolutional_codes_tpu_torch.utils.profiling import annotate, count
 
 
 def long_frame_decode_stream(code: Code, dists, hard: bool = False) -> torch.Tensor:
@@ -210,6 +218,18 @@ def streaming_viterbi_decode(code: Code, dists, mesh: Mesh, warmup: int = 128,
     return torch.cat(full, dim=0).T.contiguous()
 
 
+def _mc_launch(code: Code, lanes: int, windows: int, seed, param, channel: str,
+               demapper: str, window: int, warmup: int, win0: int, device):
+    """One :func:`mc_longframe_viterbi` launch of ``windows`` windows from
+    ``win0``, in the span ``mc_launch``, counted while tracing."""
+    with annotate("mc_launch"):
+        out = mc_longframe_viterbi(code, lanes, windows, int(seed) & 0x7FFFFFFF, param,
+                                   channel, demapper, window, warmup, win0, device)
+    count("stream_windows", lanes * windows)
+    count("stream_positions", lanes * (windows * window + 2 * warmup) if windows else 0)
+    return out
+
+
 def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,
                             channel: str = "awgn", demapper: str = "soft",
                             window: int = 1920, warmup: int = 128, mesh: Mesh = None,
@@ -222,28 +242,45 @@ def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,
     Without a mesh: one :func:`mc_longframe_viterbi` call on ``device``
     from window 0, whose int32 counters it returns.  With a mesh of D
     slots: each slot (in axis order) decodes a distinct TIME RANGE of the
-    same streams, ``windows / D`` windows from ``win0 = slot * windows /
-    D``.  The kernel's windows are independent overlap-save decodes of
-    hash-addressed stream positions, so a slot regenerates its halos
-    itself, no state moves between slots, and the summed counters equal
-    the one-device run's exactly; they come back as int64 CPU tensors.
+    same streams, ``windows // D`` windows, the first ``windows % D``
+    slots one more, each range starting where the slot before it ends (a
+    slot with no window launches nothing).  The kernel's windows are
+    independent overlap-save decodes of hash-addressed stream positions,
+    so a slot regenerates its halos itself, no state moves between slots,
+    and the summed counters equal the one-device run's exactly; they come
+    back as int64 CPU tensors.
     """
     if mesh is None:
-        be, we = mc_longframe_viterbi(code, lanes, windows, int(seed) & 0x7FFFFFFF, param,
-                                      channel, demapper, window, warmup, 0, device)
+        be, we = _mc_launch(code, lanes, windows, seed, param, channel, demapper, window,
+                            warmup, 0, device)
         return be, we, lanes * windows * window
     ndev = mesh.size
-    if windows % ndev:
-        raise ValueError(f"{windows} windows not divisible by {ndev} devices")
-    wpd = windows // ndev
-    outs = [mc_longframe_viterbi(code, lanes, wpd, int(seed) & 0x7FFFFFFF, param, channel,
-                                 demapper, window, warmup, k * wpd, dev)
-            for k, (dev, rank) in enumerate(mesh.slots()) if rank == mesh.rank]
-    counts = torch.zeros((2, lanes), dtype=torch.int64)
-    for be, we in outs:   # the host reduction
-        counts += torch.stack([be, we]).cpu()
-    counts = mesh.sum_over_processes(counts)
+    base, extra = divmod(windows, ndev)
+    win0 = [k * base + min(k, extra) for k in range(ndev + 1)]
+    outs = [_mc_launch(code, lanes, win0[k + 1] - win0[k], seed, param, channel, demapper,
+                       window, warmup, win0[k], dev)
+            for k, (dev, rank) in enumerate(mesh.slots())
+            if rank == mesh.rank and win0[k + 1] > win0[k]]
+    with annotate("mc_readback"):
+        counts = torch.zeros((2, lanes), dtype=torch.int64)
+        for be, we in outs:   # the host reduction
+            counts += torch.stack([be, we]).cpu()
+        counts = mesh.sum_over_processes(counts)
     return counts[0], counts[1], lanes * windows * window
+
+
+def stream_mc_counts(code: Code, lanes: int, windows: int, seed, param,
+                     channel: str = "awgn", demapper: str = "soft", window: int = 1920,
+                     warmup: int = 128, mesh: Mesh = None, device="cuda"
+                     ) -> Tuple[int, int, int]:
+    """:func:`streaming_mc_accumulate` summed over its lanes with one
+    blocking read: (bit_errors, window_errors, info bits) ints, the counts
+    of ``lanes`` fresh streams' windows 0 .. ``windows - 1``."""
+    be, we, nb = streaming_mc_accumulate(code, lanes, windows, seed, param, channel,
+                                         demapper, window, warmup, mesh, device)
+    with annotate("mc_readback"):
+        sums = torch.stack([be.sum(dtype=torch.int64), we.sum(dtype=torch.int64)]).tolist()
+    return int(sums[0]), int(sums[1]), nb
 
 
 def dryrun_streaming(n_devices: int, devices=None) -> None:

@@ -6,12 +6,18 @@ and flags):
     python -m convolutional_codes_tpu_torch.sim.cli awgn    --code k9-r12 --decoder stack
     python -m convolutional_codes_tpu_torch.sim.cli bsc     --code 0 --decoder fano
     python -m convolutional_codes_tpu_torch.sim.cli uncoded --code 0
+    python -m convolutional_codes_tpu_torch.sim.cli awgn    --code nasa-k7 --stream-window 1920 \
+        --points 6 --frames 65536
 
 The sweep runs on the CUDA device; without one the CLI exits with an
 error, and ``--cpu`` selects the CPU explicitly.  ``--bits-scale`` shrinks
 the reference-sized tiers (8e8-bit base) for quick runs.  Stack and Fano
 points size their lanes from the tiers (``sim/sweep.seq_plan``), not from
 ``--frames``; ``--timeout-per-bit`` sets the Fano budget.
+``--stream-window`` runs Viterbi points on long streaming frames (the
+fused long-frame kernel): ``--frames`` streams, each decoded in
+overlap-save windows of that many payload symbols with
+``--stream-warmup`` halo symbols on both sides.
 
 ``--mesh`` takes the reference's syntax (``frames=8``, ``sweep=2,frames=4``):
 the slots are the visible cards, and a shape that does not match them
@@ -52,6 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--demapper", choices=("soft", "hard"), default="soft")
             sp.add_argument("--timeout-per-bit", type=int, default=10000,
                             help="Fano decode budget (reference TIMEOUT)")
+            sp.add_argument("--stream-window", type=int, default=0,
+                            help="payload symbols a window of long streaming frames "
+                                 "(Viterbi; default 0: terminated blocks)")
+            sp.add_argument("--stream-warmup", type=int, default=128,
+                            help="halo symbols on each side of a stream window")
         sp.add_argument("--points", type=float, nargs="*", default=None,
                         help="sweep points (Eb/N0 dB or crossover probs)")
         sp.add_argument("--frames", type=int, default=4096,
@@ -108,12 +119,17 @@ def main(argv=None) -> int:
         seed=args.seed,
         timeout_per_bit=getattr(args, "timeout_per_bit", 10000),
         trace_dir=args.trace,
+        stream_window=getattr(args, "stream_window", 0),
+        stream_warmup=getattr(args, "stream_warmup", 128),
     )
     code = get_code(args.code)
     print(f"code {code.name}: K={code.constraint_length} "
           f"rate 1/{code.symlen_out} block={code.block_length} "
           f"polys={[oct(p) for p in code.polynomials]} parity={code.parity} "
           f"device={device}")
+    if spec.stream_window:
+        print(f"long streaming frames: {spec.frames_per_step} streams, windows of "
+              f"{spec.stream_window} + 2 x {spec.stream_warmup} symbols")
     mesh = parse_mesh(args.mesh, device)
     if mesh is not None:
         print(f"mesh {mesh.shape} on {mesh.size} {device} slots")

@@ -20,14 +20,21 @@ Legs (as in the reference package's ``sim/sweep.py``):
     warm one on a side stream, so that on the card the point waits for one
     drain of its slowest walks rather than one a slice, and both come back
     in one read-back; the reference's VMEM gates on T*M do not apply here;
+  * stream: with ``stream_window`` > 0, a Viterbi point runs long
+    streaming frames (``parallel/streaming.stream_mc_counts``, the fused
+    long-frame kernel 6 or its plain version on the CPU): a step is one
+    overlap-save window of ``stream_window`` payload symbols (halos of
+    ``stream_warmup`` on both sides) in every lane, and a chunk is one
+    launch of fresh, unbroken streams from window 0;
   * modular: other Viterbi configs run the step chain of ``sim/chain.py``;
   * uncoded: the nearest-point baseline.
 On a mesh: points of equal step counts run side by side over the ``sweep``
 axis, each summed over ``frames`` (the sweep×frames grid); stack/Fano
-points run their lanes over every slot (``parallel/seq_grid.py``); the
-rest run one at a time over the ``frames`` axis.  Every leg derives its
-seeds as the serial leg does, so the grid legs give the serial legs'
-counters exactly.
+points run their lanes over every slot (``parallel/seq_grid.py``); stream
+points run one at a time, each chunk's windows split by time range over
+the slots of a mesh with a ``frames`` axis; the rest run one at a time
+over the ``frames`` axis.  Every leg derives its seeds as the serial leg
+does, so the grid legs give the serial legs' counters exactly.
 
 ``trace_dir`` captures one profiler trace a point (``utils/profiling.py``)
 under ``trace_dir/point_<p>``, its work annotated ``sweep_point_<p>``, as
@@ -60,6 +67,7 @@ from convolutional_codes_tpu_torch.parallel.montecarlo import (
     device_seed, frames_accumulate, fused_grid_accumulate, fused_mc_accumulate,
     fused_mc_eligible, grid_accumulate_with_keys, per_device, sharded_accumulate)
 from convolutional_codes_tpu_torch.parallel.seq_grid import seq_mc_grid
+from convolutional_codes_tpu_torch.parallel.streaming import stream_mc_counts
 from convolutional_codes_tpu_torch.sim.chain import make_point_step, make_uncoded_step
 from convolutional_codes_tpu_torch.utils.profiling import annotate, trace
 
@@ -113,6 +121,17 @@ class SweepSpec:
     seed: int = 0
     timeout_per_bit: int = FANO_TIMEOUT
     trace_dir: Optional[str] = None       # one profiler trace a point under it
+    stream_window: int = 0                # payload symbols a stream window; 0: terminated blocks
+    stream_warmup: int = 128              # halo symbols on each side of a stream window
+
+    def __post_init__(self):
+        if self.stream_window < 0 or self.stream_warmup < 0:
+            raise ValueError(f"stream_window {self.stream_window} and stream_warmup "
+                             f"{self.stream_warmup} must not be negative")
+        if self.stream_window and (self.decoder != "viterbi"
+                                   or self.channel not in ("awgn", "bsc")):
+            raise ValueError(f"stream_window runs the Viterbi decoder on awgn or bsc, "
+                             f"got decoder {self.decoder!r} on {self.channel!r}")
 
     def resolve_code(self) -> Code:
         return self.code if isinstance(self.code, Code) else get_code(self.code)
@@ -133,10 +152,10 @@ class PointRecord:
     param: float            # sigma or crossover actually applied
     bits: int
     bit_errors: int
-    frame_errors: int       # uncoded: symbol errors (frame == one symbol)
-    frames: int             # uncoded: symbols
+    frame_errors: int       # uncoded: symbol errors (frame == one symbol); stream: bad windows
+    frames: int             # uncoded: symbols; stream: windows
     ber: float
-    fer: float              # uncoded: symbol error rate
+    fer: float              # uncoded: symbol error rate; stream: window error rate
     wall_s: float
     bits_per_s: float       # warm steady-state rate when measurable
     #: the first chunk of a point pays kernel build and warm-up; bits/wall
@@ -156,7 +175,7 @@ def _spec_fingerprint(spec: SweepSpec, code: Code) -> str:
     """Hash of everything that determines a sweep's counters, stored in the
     checkpoint as ``__spec__``.  The payload and encoding equal the
     reference package's, so a checkpoint of either package resumes in the
-    other."""
+    other; a stream spec adds its window and warm-up."""
     payload = {
         "code": code.name,
         "polys": list(code.polynomials),
@@ -172,6 +191,8 @@ def _spec_fingerprint(spec: SweepSpec, code: Code) -> str:
         "timeout_per_bit": spec.timeout_per_bit,
         "frames_per_step": spec.frames_per_step,
     }
+    if spec.stream_window:
+        payload.update(stream_window=spec.stream_window, stream_warmup=spec.stream_warmup)
     return hashlib.sha256(
         json.dumps(payload, sort_keys=True).encode()).hexdigest()[:16]
 
@@ -180,6 +201,11 @@ def _chunk_seed(seed: int, point_idx: int, chunk_idx: int) -> int:
     """Per-(point, chunk) seed (reference sim/sweep.py:607); chunk 0 is also
     the sequential leg's point seed (:569)."""
     return (seed * 1000003 + point_idx * 7919 + chunk_idx) & 0x7FFFFFFF
+
+
+#: a chunk simulates at most this many info bits: its int32 per-lane
+#: counters cannot overflow
+CHUNK_BITS = 1 << 30
 
 
 def target_bits(spec: SweepSpec, point: float) -> int:
@@ -282,7 +308,9 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
         frames = spec.frames_per_step
 
         sequential = not uncoded and spec.decoder in ("stack", "fano")
-        frame_bits = code.symlen_out if uncoded else code.block_length
+        stream = spec.stream_window > 0
+        frame_bits = (code.symlen_out if uncoded else
+                      spec.stream_window if stream else code.block_length)
         if uncoded:
             to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=code.symlen_out))
         else:
@@ -291,19 +319,19 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
         spec_fp = _spec_fingerprint(spec, code)
         done_points = _load_checkpoint(checkpoint_path, spec_fp) if checkpoint_path else {}
 
-        use_fused = (not uncoded and fused_mc_eligible(
+        use_fused = (not uncoded and not stream and fused_mc_eligible(
             code, spec.channel, spec.decoder, spec.demapper))
         eff_frames = max(1024, -(-frames // 1024) * 1024) if use_fused else frames
         step = None
-        if uncoded or not (sequential or use_fused):
+        if uncoded or not (sequential or use_fused or stream):
             # the chain's steps are built for one device: one per distinct slot device
             build = ((lambda dev: make_uncoded_step(code.symlen_out, frames, dev)) if uncoded
                      else (lambda dev: make_point_step(code, spec.channel, spec.decoder,
                                                        spec.demapper, frames, device=dev)))
             step = per_device(build, frames_mesh) if frames_mesh else build(device)
-        bits_per_call = eff_frames * frame_bits * ndev
-        # chunk the accumulation so int32 per-lane counters cannot overflow
-        chunk = max(1, (1 << 30) // max(1, eff_frames * frame_bits))
+        # a stream chunk's windows are split over the slots: its bits do not scale
+        bits_per_call = eff_frames * frame_bits * (1 if stream else ndev)
+        chunk = max(1, CHUNK_BITS // max(1, eff_frames * frame_bits))
 
         # plan: (index, point, param, nsteps) for every point not checkpointed
         records_by_idx = {}
@@ -355,7 +383,7 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
             ci += 1
 
     # ---- the sweep×frames grid: equal step counts side by side over `sweep`
-    if (mesh is not None and not sequential and "sweep" in mesh.axis_names
+    if (mesh is not None and not sequential and not stream and "sweep" in mesh.axis_names
             and frames_mesh is not None):
         Ds = mesh.shape["sweep"]
         by_steps = {}
@@ -421,7 +449,11 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
         with point_traces(spec.trace_dir, [point]):
             for ci, n in chunks(nsteps):
                 seed_c = _chunk_seed(spec.seed, i, ci)
-                if use_fused:
+                if stream:
+                    cbe, cfe, cnb = stream_mc_counts(
+                        code, frames, n, seed_c, param, spec.channel, spec.demapper,
+                        spec.stream_window, spec.stream_warmup, frames_mesh, device)
+                elif use_fused:
                     cbe, cfe, cnb = fused_mc_accumulate(
                         code, n, seed_c, param, eff_frames, frames_mesh,
                         channel=spec.channel, demapper=spec.demapper, device=device)

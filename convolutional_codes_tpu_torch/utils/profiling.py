@@ -20,7 +20,8 @@ once: one check, no allocation, no ``record_function``.
   writes it at the end, and stamps it on the clock of the card's kernels.
   The port's spans, nested on the host thread: ``sweep_point_<p>`` (a
   point's work), ``sweep_plan`` (``run_sweep``'s preamble), ``mc_launch``
-  (the host's preparation and enqueue of one Monte-Carlo kernel launch),
+  (the host's preparation and enqueue of one Monte-Carlo kernel launch,
+  kernels 3, 6, 7 and 8),
   ``mc_readback`` (the counters' reduction launches and their blocking
   reads to the host), ``sweep_record`` (a point's record), ``build_load``
   (a kernel library built or loaded).
@@ -32,7 +33,10 @@ once: one check, no allocation, no ``record_function``.
   lane found the frame queue empty, from the kernels' own clock words:
   ``ops/sequential_common.walk_clock``), ``walk_cold_ns`` and
   ``walk_overlap_ns`` (a sequential point's cold launch's time, and the
-  time its warm launch ran beside it: ``parallel/seq_grid.py``).  A
+  time its warm launch ran beside it: ``parallel/seq_grid.py``),
+  ``stream_windows`` and ``stream_positions`` (a long-frame launch's
+  lanes x windows, and the distinct stream positions it generates, from
+  its arguments: ``parallel/streaming.py``).  A
   counter whose value lives on the device stays there until
   :func:`counters` reads it, so tracing adds no host sync to the traced
   work.

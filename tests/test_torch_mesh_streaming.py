@@ -102,6 +102,13 @@ def test_streaming_mc_bsc_equals_jax():
         channel="bsc", window=96, warmup=48, interpret=True)
     assert nb == rnb
     assert be.tolist() == np.asarray(rbe).tolist() and we.tolist() == np.asarray(rwe).tolist()
-    with pytest.raises(ValueError, match="not divisible"):
-        st.streaming_mc_accumulate(get_code("nasa-k7"), 16, 6, 9, 0.03, "bsc",
-                                   mesh=make_mesh({"seq": 4}, devices=[CPU] * 4))
+    # windows that do not divide, and fewer windows than slots: the first
+    # slots take one more, a slot with none launches nothing
+    for windows in (6, 3):
+        be1, we1 = mc_longframe_viterbi(get_code("nasa-k7"), 16, windows, 9, 0.03, "bsc",
+                                        window=96, warmup=48, device="cpu")
+        be, we, nb = st.streaming_mc_accumulate(
+            get_code("nasa-k7"), 16, windows, 9, 0.03, "bsc", window=96, warmup=48,
+            mesh=make_mesh({"seq": 4}, devices=[CPU] * 4))
+        assert nb == 16 * windows * 96
+        assert torch.equal(be, be1.long()) and torch.equal(we, we1.long()), windows

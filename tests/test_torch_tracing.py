@@ -2,7 +2,8 @@
 the launches and read-backs of every leg of ``run_sweep`` are spans
 (``mc_launch``, ``mc_readback``) inside their ``sweep_point_<p>``, the
 preamble and a point's record are ``sweep_plan`` and ``sweep_record``;
-``walk_iters`` sums the walks' iteration rows; the walk kernels' clock
+``walk_iters`` sums the walks' iteration rows; ``stream_windows`` and
+``stream_positions`` count the stream leg's plan; the walk kernels' clock
 words stay pending on the device until ``counters()`` reads them; a
 point's two slices add their overlap.  All of
 it records only under a profiler session: without one, nothing opens a
@@ -36,6 +37,9 @@ LEGS = {
     # T > 256 turns the fused kernel away: the step chain under sharded_accumulate
     "modular": (dict(code=get_code("k3-75").replace(name="k3-75-long", block_length=300),
                      decoder="viterbi"), {"mc_readback"}),
+    # long streaming frames: kernel 6's plain version, windows of 32 + 2 x 16
+    "stream": (dict(code="nasa-k7", decoder="viterbi", stream_window=32, stream_warmup=16),
+               {"mc_launch", "mc_readback"}),
 }
 
 
@@ -102,6 +106,19 @@ def test_no_session_records_nothing(monkeypatch, leg):
     assert profiling.annotate("a") is profiling.annotate("b")
     with walk_clock(CPU) as clock:
         assert clock is None
+
+
+def test_stream_counters_equal_the_plan():
+    """A traced stream point of 9 windows (a cold launch of 1, then 8):
+    ``stream_windows`` is lanes x windows and ``stream_positions`` each
+    launch's lanes x (windows x window + 2 x warmup), exactly."""
+    spec = _leg_spec("stream", trace_dir=None)
+    spec.bits_per_point = 64 * 32 * 9
+    with profile(activities=[ProfilerActivity.CPU]):
+        (rec,) = run_sweep(spec, verbose=False, device="cpu")
+    assert rec.frames == 64 * 9
+    assert profiling.counters() == {"stream_windows": 64 * 9,
+                                    "stream_positions": 64 * (1 * 32 + 32) + 64 * (8 * 32 + 32)}
 
 
 @pytest.mark.parametrize("decoder", ["stack", "fano"])
