@@ -10,7 +10,10 @@ Phases, each of which raises on failure:
   2. build: compile the CUDA kernels from ``convolutional_codes_tpu_torch/csrc``
      (one nvcc per source, side by side), and print the ``-Xptxas -v``
      report of the Fano kernels (no spills; kernel 10 with a 0-byte stack
-     frame), of the stack kernels (no spills; kernel 9 with a 0-byte stack
+     frame; beside each instance its step loop's instructions from the
+     SASS, those every iteration issues, which phase 5's Fano bounds use,
+     and the reconvergence barriers in it), of the
+     stack kernels (no spills; kernel 9 with a 0-byte stack
      frame, kernel 7's pinned), of the fused chain and of the long-frame kernels (no spills
      for S <= 64; kernels 3 and 6's resident warps per SM for each
      instance); read the SASS (``cuobjdump -sass``) of kernel 3's code-0
@@ -163,9 +166,11 @@ BEFORE_STACK = {("k9-r12", 4.0): 8.414728e7, ("k9-r12", 8.0): 1.561747e9,
                 "stack_decode": {0: 1.481, "k9-r12": 16.590}}
 #: lane-instructions per cycle and SM (4 schedulers x 32 lanes) and SMs
 LANE_SLOTS_PER_SM, SMS = 128, 132
-#: estimated instructions per walk iteration of the Fano step (not
-#: measured: ncu does not run on the card's machine)
-INSTR_PER_ITER = {"mc_fano": 40, "fano_decode": 40}
+#: instructions a walk iteration of the Fano step issues, whatever its
+#: outcome (``sass_always`` of the step loop; phase 2 reads them from the
+#: SASS of this build, fano_step_instr): kernels 8 and 10 with their node
+#: records in shared memory, narrow and wide (``_wide``) builds
+INSTR_PER_ITER = {}
 
 
 def require(cond, what: str) -> None:
@@ -238,15 +243,16 @@ def cuda_median_ms(fn, reps: int) -> float:
     return float(np.median([start.elapsed_time(end) for start, end in marks]))
 
 
-def print_ptxas(log: str, build: str = "fano_mc") -> None:
+def print_ptxas(log: str, build: str = "fano_mc", steps: dict = None) -> None:
     """The ``-Xptxas -v`` report of the Fano kernels (kernels 8 and 10 for
     each node storage) of ``build``, ``fano_mc`` or its wide build
     ``fano_mc_wide`` (codes of 5-8 coded bits a symbol): registers, stack
-    frame and spills.  No instance may spill, and kernel 10's keep a 0-byte
-    stack frame.  Kernel 8's keep exactly 32 bytes in ``fano_mc``, the local
-    array of sinf/cosf's reduction of huge arguments (its datagen's
-    Box-Muller; never taken, the angle is below 2 pi): a frame that grows
-    fails; in the wide build none or those 32 bytes."""
+    frame and spills, and beside them what ``steps`` (fano_step_instr)
+    read of each instance's step loop.  No instance may spill, and kernel
+    10's keep a 0-byte stack frame.  Kernel 8's keep exactly 32 bytes in
+    ``fano_mc``, the local array of sinf/cosf's reduction of huge arguments
+    (its datagen's Box-Muller; never taken, the angle is below 2 pi): a
+    frame that grows fails; in the wide build none or those 32 bytes."""
     import re
     require(log, f"no -Xptxas -v report of {build}")
     instances = re.findall(r"Compiling entry function '(\S+)'.*?\n.*?Function properties for "
@@ -254,7 +260,11 @@ def print_ptxas(log: str, build: str = "fano_mc") -> None:
     require(len(instances) == 4, f"-Xptxas -v: {len(instances)} Fano kernel instances, want 4")
     for mangled, frame, regs in instances:
         kernel = re.search(r"(fano_mc_kernel|fano_decode_kernel)INS_\d+(\w+?Nodes)E", mangled)
-        print(f"ptxas {build}: {kernel[1]}<{kernel[2]}>: {regs}, {frame}")
+        step = (steps or {}).get((kernel[1], kernel[2]))
+        loop = ("" if step is None else
+                f"; step loop {step[0]} instructions, {step[1]} issued every iteration, "
+                f"{step[2]} reconvergence barriers (BSSY) inside")
+        print(f"ptxas {build}: {kernel[1]}<{kernel[2]}>: {regs}, {frame}{loop}")
         require(frame.endswith("0 bytes spill stores, 0 bytes spill loads"),
                 f"{build} {kernel[0]} spills: {frame}")
         want = (("32",) if build == "fano_mc" else ("0", "32")) if kernel[1] == "fano_mc_kernel" \
@@ -424,6 +434,27 @@ def sass_always(code: list, lo: int, hi: int) -> int:
         if m and lo <= addr <= hi and addr < int(m[1], 16) <= hi + 16:
             skipped.update(a for a, _ in code if addr < a < int(m[1], 16))
     return sum(lo <= addr <= hi and addr not in skipped for addr, _ in code)
+
+
+def fano_step_instr(build, lib: str) -> dict:
+    """Kernels 8 and 10 of ``lib`` (``fano_mc`` or ``fano_mc_wide``) in
+    their SASS: {(kernel, node storage): (instructions of the step loop,
+    those every iteration issues (sass_always), BSSY inside the loop)}.
+    The step loop is the innermost loop that stores a node record (one
+    128-bit store, to shared or to device memory)."""
+    import re
+    out = {}
+    for name, code in sass_functions(build.library_path(lib)).items():
+        k = re.search(r"(fano_mc_kernel|fano_decode_kernel)INS_\d+(\w+?Nodes)E", name)
+        if not k:
+            continue
+        loops = sass_loops(code, "STS.128" if k[2] == "SharedNodes" else "STG.E.128")
+        require(loops, f"SASS {lib} {k[1]}<{k[2]}>: no loop stores a node record")
+        body = sass_body(code, *loops[0])
+        out[(k[1], k[2])] = (len(body), sass_always(code, *loops[0]),
+                             sum(sass_op(t)[2] == "BSSY" for t in body))
+    require(len(out) == 4, f"SASS {lib}: {len(out)} Fano kernel instances, want 4")
+    return out
 
 
 def read_sass(build) -> dict:
@@ -2270,7 +2301,7 @@ def measure_supplied(torch, dev, card, clock, stats):
             est = "its function's operations, STACK_OPS"
         else:
             ops_ms = float(iters.sum()) * INSTR_PER_ITER[name] / slots * 1e3
-            est = f"{INSTR_PER_ITER[name]} instr./iteration est."
+            est = f"{INSTR_PER_ITER[name]} instructions an iteration (SASS)"
         b_ms = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
         t0 = time.time()
         want = decode_plain(decoder, code, d, True, FANO_TIMEOUT)
@@ -2758,8 +2789,8 @@ def measure_wide(torch, dev, card, clock) -> None:
                 f"version on {int((got != want).any(0).sum())} of 256 lanes")
         out = mc(code, 8192, 1, 41, sigma, device=dev)
         ms = cuda_ms(lambda: mc(code, 8192, 1, 42, sigma, device=dev), 2)
-        bound = iteration_bound_ms("mc_stack" if name[0] == "7" else "mc_fano", out[2].cpu(),
-                                   clock, code)
+        bound = iteration_bound_ms("mc_stack" if name[0] == "7" else "mc_fano_wide",
+                                   out[2].cpu(), clock, code)
         print(f"  kernel {name}: AWGN 12 dB, 8192 lanes x 1: {ms:.3f} ms "
               f"({8192 * L / ms * 1e3:.4e} info bits/s), {int(out[2].sum())} iterations "
               f"({float(out[2].sum()) / (8192 * L):.3f} a bit, largest walk "
@@ -2782,7 +2813,7 @@ def measure_wide(torch, dev, card, clock) -> None:
         ms = cuda_ms(run, 5)
         bytes_ms = walk_read_bytes(iters, code, decoder) / HBM_BYTES_PER_S * 1e3
         ops_ms = (stack_ops(code, "awgn", iters, 1, False) if decoder == "stack"
-                  else float(iters.sum()) * INSTR_PER_ITER["fano_decode"]) / rate * 1e3
+                  else float(iters.sum()) * INSTR_PER_ITER["fano_decode_wide"]) / rate * 1e3
         print(f"  kernel {name}: AWGN 12 dB, B={B}: {ms:.4f} ms "
               f"({B * L / ms * 1e3:.4e} info bits/s of decode), {int(iters.sum())} iterations "
               f"({float(iters.sum()) / (B * L):.3f} a bit, largest walk {int(iters.max())}); "
@@ -2923,7 +2954,15 @@ def main() -> int:
         for name in build.LIBRARIES:
             print(f"built {name}.cu in {build.build_seconds[name]:.1f} s")
         for name in ("fano_mc", "fano_mc_wide"):
-            print_ptxas(build.build_log.get(name, ""), name)
+            steps = fano_step_instr(build, name)
+            print_ptxas(build.build_log.get(name, ""), name, steps)
+            if name == "fano_mc":
+                INSTR_PER_ITER["mc_fano"] = steps[("fano_mc_kernel", "SharedNodes")][1]
+                INSTR_PER_ITER["fano_decode"] = steps[("fano_decode_kernel", "SharedNodes")][1]
+            else:
+                INSTR_PER_ITER["mc_fano_wide"] = steps[("fano_mc_kernel", "SharedNodes")][1]
+                INSTR_PER_ITER["fano_decode_wide"] = steps[("fano_decode_kernel",
+                                                            "SharedNodes")][1]
         for name in ("stack_mc", "stack_mc_wide"):
             print_ptxas_stack(build.build_log.get(name, ""), name)
         print_ptxas_longframe(build.build_log)

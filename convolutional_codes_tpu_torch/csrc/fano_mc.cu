@@ -38,30 +38,43 @@
 // latency of one step, and the card's throughput is the number of walks in
 // flight over that latency.  The design attacks both:
 //  * The node record.  A node is 16 bytes, {state | selected << 31,
-//    nmetric, m0, m1} with m0/m1 the branch metrics by input bit, unsorted.
-//    The sorted order, the decoded bit (swap ^ selected, swap = m0 < m1:
-//    the comparison that sorted them), the selected metric m[decoded] and
-//    the successor (state | decoded << (K-1)) >> 1 are derived.  The record
-//    of the current node lives in registers, so a SEARCH step touches
-//    memory only to read the two branch metrics of the next node (fetched
-//    before the threshold compare: the next state does not depend on it)
-//    and to store the record it enters; a BACKTRACK step reads one record.
-//  * Shared memory.  The records of a frame are laid out [word][node][slot]
-//    with a stride of blockDim.x (a multiple of 32): a lane's bank is its
-//    slot whatever node it stands on, so lanes at different depths never
-//    conflict.  A frame of T > 454 nodes leaves no room for 32 slots in a
-//    block; it runs the same walk (fano_step is a template over the
-//    storage) on device-memory scratch in the same layout, strided by the
-//    grid's slots.
-//  * The branch metrics; the next node's two are fetched before the
-//    compare.  Kernel 8's datagen writes each frame's T * M metrics once
-//    into a table in device memory, one per slot, so a step reads a metric
-//    instead of computing it (staging the table in shared memory would
-//    halve the walks an SM holds).  Kernel 10 computes its metrics at each
-//    step from the supplied frame where it lies, in its own [B][T][M]
-//    layout.  Codes of 5-8 coded bits a symbol run the wide build of this
-//    file (fano_mc_wide, sequential.cuh's CC_SEQ_WIDE), whose kernel 8
-//    keeps a frame's T received rows instead of a table 8-64 times larger
+//    nmetric, m0, m1} with m0/m1 the branch metrics by input bit, unsorted,
+//    read and written as one uint4 (one 128-bit access).  The sorted
+//    order, the decoded bit (swap ^ selected, swap = m0 < m1: the
+//    comparison that sorted them), the selected metric m[decoded] and the
+//    successor (state | decoded << (K-1)) >> 1 are derived.  The record of
+//    the current node lives in registers and in memory alike.
+//  * One straight-line iteration.  The walks of a warp are in different
+//    phases (SEARCH forward, a failed SEARCH, BACKTRACK back or relax), and a
+//    tree of branches would run the union of their paths one after another.
+//    fano_step instead issues the same instructions on every lane whatever
+//    its phase: both reads at its top (the successor's two branch metrics and
+//    the previous node's record), every outcome's values, and one outcome
+//    committed by selects, with one store of the record of the node the walk
+//    then stands on (memory holds the registers' record, so where nothing
+//    changed the store rewrites what is there).  The successor's expected
+//    symbols come from the parities of the state's kept bits, computed while
+//    the decoded bit is still being compared, so the metric reads wait on
+//    that bit alone.  Only the tightening (a SEARCH above the threshold from
+//    a node whose metric lies below thr + DELTA) stays a predicated region:
+//    it holds the IEEE division, and computed on every lane it made the
+//    iteration longer (PERF.md, Findings).
+//  * Shared memory.  The records of a frame are laid out [node][slot] with
+//    a stride of blockDim.x records (a multiple of 32): a record's bank
+//    group (16 bytes, 4 of the 32 banks) is its slot's, mod 8, whatever
+//    node it stands on, so the 8 lanes of a quarter warp, which one
+//    128-bit access serves together, never conflict.  A frame of T > 454
+//    nodes leaves no room for 32 slots in a block; it runs the same walk
+//    (fano_step is a template over the storage) on device-memory scratch
+//    in the same layout, strided by the grid's slots.
+//  * The branch metrics.  Kernel 8's datagen writes each frame's T * M
+//    metrics once into a table in device memory, one per slot, so a step
+//    reads a metric instead of computing it (staging the table in shared
+//    memory would halve the walks an SM holds).  Kernel 10 computes its
+//    metrics at each step from the supplied frame where it lies, in its own
+//    [B][T][M] layout.  Codes of 5-8 coded bits a symbol run the wide build
+//    of this file (fano_mc_wide, sequential.cuh's CC_SEQ_WIDE), whose kernel
+//    8 keeps a frame's T received rows instead of a table 8-64 times larger
 //    and computes each metric from them (RowMetrics).
 //  * A queue of frames.  The grid is persistent (SMs x resident blocks);
 //    a lane whose walk has stopped takes the next frame with an atomicAdd
@@ -81,59 +94,51 @@ constexpr unsigned kSel = 1u << 31;   // the selected flag in word 0
 constexpr int kMaxThreads = 128;      // threads per block of any plan
 constexpr int kStepsPerVote = 8;      // walk steps between two refill votes of a warp
 
-// A slot's node records in shared memory: word w of node t at
-// base[(w * T + t) * blockDim.x], base = smem + slot.
+// A node's record as one 16-byte word.
+__device__ __forceinline__ uint4 record(unsigned w0, float nm, float m0, float m1) {
+  return make_uint4(w0, __float_as_uint(nm), __float_as_uint(m0), __float_as_uint(m1));
+}
+
+// A slot's node records in shared memory: node t at base[t * blockDim.x],
+// base = smem + slot.
 struct SharedNodes {
-  unsigned* base;
+  uint4* base;
   unsigned stride;
-  int T;
-  static __device__ __forceinline__ SharedNodes make(unsigned*, int T, unsigned lane) {
-    extern __shared__ unsigned smem[];
-    return {smem + slot_in_block(lane), blockDim.x, T};
+  static __device__ __forceinline__ SharedNodes make(unsigned*, unsigned lane) {
+    extern __shared__ uint4 smem[];
+    return {smem + slot_in_block(lane), blockDim.x};
   }
-  __device__ __forceinline__ unsigned& word(int w, int t) const {
-    return base[((unsigned)w * T + t) * stride];
-  }
+  __device__ __forceinline__ uint4 load(int t) const { return base[(unsigned)t * stride]; }
+  __device__ __forceinline__ void store(int t, uint4 r) const { base[(unsigned)t * stride] = r; }
 };
 
 // The same records in device-memory scratch, strided by the grid's slots.
 struct GlobalNodes {
-  unsigned* base;
+  uint4* base;
   size_t stride;
-  int T;
-  static __device__ __forceinline__ GlobalNodes make(unsigned* scratch, int T, unsigned lane) {
+  static __device__ __forceinline__ GlobalNodes make(unsigned* scratch, unsigned lane) {
     const size_t slot = (size_t)blockIdx.x * blockDim.x + slot_in_block(lane);
-    return {scratch + slot, (size_t)gridDim.x * blockDim.x, T};
+    return {reinterpret_cast<uint4*>(scratch) + slot, (size_t)gridDim.x * blockDim.x};
   }
-  __device__ __forceinline__ unsigned& word(int w, int t) const {
-    return base[((size_t)w * T + t) * stride];
-  }
+  __device__ __forceinline__ uint4 load(int t) const { return base[(size_t)t * stride]; }
+  __device__ __forceinline__ void store(int t, uint4 r) const { base[(size_t)t * stride] = r; }
 };
-
-template <class Nodes>
-__device__ __forceinline__ void put_node(const Nodes& n, int t, unsigned w0, float nm, float m0,
-                                         float m1) {
-  n.word(0, t) = w0;
-  n.word(1, t) = __float_as_uint(nm);
-  n.word(2, t) = __float_as_uint(m0);
-  n.word(3, t) = __float_as_uint(m1);
-}
 
 // The decoded bit of node t: swap ^ selected, 0 beyond the deepest visit.
 template <class Nodes>
 __device__ __forceinline__ unsigned node_bit(const Nodes& n, int t, int deepest) {
   if (t > deepest) return 0u;
-  const bool swap = __uint_as_float(n.word(2, t)) < __uint_as_float(n.word(3, t));
-  return (unsigned)swap ^ (n.word(0, t) >> 31);
+  const uint4 r = n.load(t);
+  return (unsigned)(__uint_as_float(r.z) < __uint_as_float(r.w)) ^ (r.x >> 31);
 }
 
-// One frame's walk: the current node's record in registers (state,
-// selected, nmetric, m0, m1), the threshold, the budget left, the deepest
-// node visited, the iterations.  `done` once the walk has stopped; a finish
-// or an exhausted budget leaves cur where it was, so nm is the metric
-// written when cur was entered.
+// One frame's walk: the current node's record in registers (w0 = state |
+// selected << 31, nmetric, m0, m1), the threshold, the budget left, the
+// deepest node visited, the iterations.  `done` once the walk has stopped;
+// a finish or an exhausted budget leaves cur where it was, so nm is the
+// metric written when cur was entered.
 struct Walk {
-  unsigned state, sel;
+  unsigned w0;
   float nm, m0, m1, thr;
   int cur, deepest, timeout;
   bool backtrack, done;
@@ -143,93 +148,108 @@ struct Walk {
 template <class Nodes, class Metrics>
 __device__ __forceinline__ void fano_start(Walk& w, const Nodes& n, const Metrics& m,
                                            const Encoder& enc, int timeout) {
-  w.state = w.sel = 0u;
+  w.w0 = 0u;
   w.nm = w.thr = 0.0f;
   w.m0 = m.at(0, enc.esym(0u, 0u));
   w.m1 = m.at(0, enc.esym(0u, 1u));
-  put_node(n, 0, 0u, 0.0f, w.m0, w.m1);
+  n.store(0, record(0u, 0.0f, w.m0, w.m1));
   w.cur = w.deepest = 0;
   w.timeout = timeout;
   w.backtrack = w.done = false;
   w.iters = 0;
 }
 
-// One iteration of the walk (the loop body of fano-decoder.c).  The caller
-// runs it as the body of its one loop over frames and steps, so that a lane
-// whose walk ends takes its next frame without waiting for the rest of its
-// warp.
+// The threshold a SEARCH step that moves forward from metric ms tightens
+// thr to (the node's metric was below thr + DELTA): the closed form of the
+// += DELTA loop.  k0 = floor((ms - thr) / DELTA), then ++k if ms >= thr +
+// (k+1) DELTA, then --k if ms < thr + k DELTA: the same operations, the
+// three thresholds the two corrections can reach computed side by side.
+__device__ __forceinline__ float tighten(float ms, float thr) {
+  const int k0 = (int)floorf((ms - thr) / kDelta);
+  const float t_lo = thr + (float)(k0 - 1) * kDelta, t_k0 = thr + (float)k0 * kDelta,
+              t_hi = thr + (float)(k0 + 1) * kDelta;
+  const bool up = ms >= t_hi;
+  const bool down = ms < (up ? t_hi : t_k0);
+  const int k = k0 + (int)up - (int)down;
+  const float t_k = up ? (down ? t_k0 : t_hi) : (down ? t_lo : t_k0);
+  return k > 0 ? t_k : thr + (float)0 * kDelta;
+}
+
+// The expected symbols e0, e1 of the two branches out of the successor
+// s1 | dec << (top - 1) of a state whose kept bits are s1 = state >> 1:
+// Encoder::esym's parities with those of s1 apart from the two bits that
+// enter them, dec at bit top - 1 and the branch's input at bit top (their
+// masks do not change along a walk).  Equal to enc.esym(successor, 0u) and
+// enc.esym(successor, 1u), without waiting for dec.
+__device__ __forceinline__ void successor_syms(const Encoder& enc, unsigned s1, unsigned dec,
+                                               unsigned& e0, unsigned& e1) {
+  unsigned ps = 0u, qs = 0u, pd = 0u, qd = 0u, pb = 0u, qb = 0u;
+#pragma unroll
+  for (int k = 0; k < CC_SEQ_MAX_SYMLEN; ++k) {
+    const unsigned r = enc.rpoly[k], rq = r & enc.qmask;
+    ps |= (__popc(s1 & r) & 1u) << k;
+    qs |= (__popc(s1 & rq) & 1u) << k;
+    pd |= (r >> (enc.top - 1u) & 1u) << k;
+    qd |= (rq >> (enc.top - 1u) & 1u) << k;
+    pb |= (r >> enc.top & 1u) << k;
+    qb |= (rq >> enc.top & 1u) << k;
+  }
+  const unsigned p = dec ? ps ^ pd : ps, q = dec ? qs ^ qd : qs;
+  e0 = p & ~q;
+  e1 = (p ^ pb) & ~(q ^ qb);
+}
+
+// One iteration of the walk (the loop body of fano-decoder.c,
+// fano-decoder.c:183-264), a step of a walk that has stopped committing
+// nothing.  The caller runs it as the body of its one loop over frames and
+// steps, so that a lane whose walk ends takes its next frame without
+// waiting for the rest of its warp.  One straight line: every lane reads
+// the successor's branch metrics and the previous node's record, computes
+// what each outcome needs, and commits its own outcome by selects.
 template <class Nodes, class Metrics>
 __device__ __forceinline__ void fano_step(Walk& w, const Nodes& n, const Metrics& m,
                                           const Encoder& enc, int T) {
-  ++w.iters;
-  if (!w.backtrack) {      // SEARCH (fano-decoder.c:183-236)
-    if (w.timeout == 0) {
-      w.done = true;
-      return;
-    }
-    --w.timeout;
-    const unsigned dec = (unsigned)(w.m0 < w.m1) ^ w.sel;
-    const float ms = w.nm + (dec ? w.m1 : w.m0);
-    // the successor and its branch metrics, read before the compare
-    const unsigned next = (w.state | dec << enc.top) >> 1;
-    const int tn = w.cur + 1 < T ? w.cur + 1 : w.cur;
-    const float n0 = m.at(tn, enc.esym(next, 0u)), n1 = m.at(tn, enc.esym(next, 1u));
-    if (ms >= w.thr) {
-      const float thr = w.thr;
-      if (w.nm < thr + kDelta) {   // tighten: closed form of the += DELTA loop
-        // k0 = floor((ms - thr) / DELTA), then ++k if ms >= thr + (k+1) DELTA,
-        // then --k if ms < thr + k DELTA: the same operations, the three
-        // thresholds the two corrections can reach computed side by side
-        const int k0 = (int)floorf((ms - thr) / kDelta);
-        const float t_lo = thr + (float)(k0 - 1) * kDelta, t_k0 = thr + (float)k0 * kDelta,
-                    t_hi = thr + (float)(k0 + 1) * kDelta;
-        const bool up = ms >= t_hi;
-        const bool down = ms < (up ? t_hi : t_k0);
-        const int k = k0 + (int)up - (int)down;
-        const float t_k = up ? (down ? t_k0 : t_hi) : (down ? t_lo : t_k0);
-        w.thr = k > 0 ? t_k : thr + (float)0 * kDelta;
-      }
-      if (w.cur + 1 == T) {
-        w.done = true;
-        return;
-      }
-      ++w.cur;
-      w.deepest = w.cur > w.deepest ? w.cur : w.deepest;
-      w.state = next;
-      w.sel = 0u;
-      w.nm = ms;
-      w.m0 = n0;
-      w.m1 = n1;
-      put_node(n, w.cur, next, ms, n0, n1);
-      return;
-    }
-    w.backtrack = true;
-  }
-  // BACKTRACK (fano-decoder.c:237-264)
+  // both reads first: the successor's branch metrics (a SEARCH that moves
+  // forward), the previous node's record (a BACKTRACK)
+  const unsigned sel = w.w0 >> 31, s1 = (w.w0 & ~kSel) >> 1;
+  const unsigned dec = (unsigned)(w.m0 < w.m1) ^ sel;
+  unsigned e0, e1;
+  successor_syms(enc, s1, dec, e0, e1);
+  const int tn = w.cur + 1 < T ? w.cur + 1 : w.cur;
+  const float n0 = m.at(tn, e0), n1 = m.at(tn, e1);
   const int prev = w.cur > 0 ? w.cur - 1 : 0;
-  const unsigned w0 = n.word(0, prev);
-  const float pm = __uint_as_float(n.word(1, prev));
-  const float p0 = __uint_as_float(n.word(2, prev)), p1 = __uint_as_float(n.word(3, prev));
-  if (w.cur > 0 && pm >= w.thr) {
-    w.cur = prev;
-    w.state = w0 & ~kSel;
-    w.sel = w0 >> 31;
-    w.nm = pm;
-    w.m0 = p0;
-    w.m1 = p1;
-    if (w.sel == 0u) {                // take the second branch
-      w.sel = 1u;
-      n.word(0, prev) = w0 | kSel;
-      w.backtrack = false;
-    }
-  } else {                            // relax, retry from the best branch
-    w.thr = w.thr - kDelta;
-    if (w.sel != 0u) {
-      w.sel = 0u;
-      n.word(0, w.cur) = w.state;
-    }
-    w.backtrack = false;
-  }
+  const uint4 p = n.load(prev);
+  const float ms = w.nm + (dec ? w.m1 : w.m0), pm = __uint_as_float(p.y);
+  // the outcome
+  const bool live = !w.done, search = live && !w.backtrack;
+  const bool spent = search && w.timeout == 0;         // SEARCH, out of budget: stop
+  const bool pass = search && !spent && ms >= w.thr;    // SEARCH above the threshold
+  const bool last = pass && w.cur + 1 == T;             // ... at the last node: stop
+  const bool fwd = pass && !last;                       // ... move forward
+  const bool bt = live && !spent && !pass;              // BACKTRACK, alone or after a failed SEARCH
+  const bool back = bt && w.cur > 0 && pm >= w.thr;    // ... move back
+  const bool relax = bt && !back;                       // ... relax, retry from the best branch
+  float thr = w.thr;
+  if (pass && w.nm < thr + kDelta) thr = tighten(ms, thr);
+  // commit: moving back takes the previous node's second branch, or goes
+  // on backtracking where it was taken; the record of the node the walk
+  // then stands on is stored (unchanged where the outcome left it so)
+  w.iters += (long long)live;
+  w.timeout -= (int)(search && !spent);
+  w.done = !live || spent || last;
+  w.thr = relax ? thr - kDelta : thr;
+  // word 0 by masks: the successor, the previous node's with its second
+  // branch taken, or this node's (its selected flag cleared by a relax)
+  const unsigned to_fwd = 0u - (unsigned)fwd, to_back = 0u - (unsigned)back;
+  w.w0 = ((s1 | dec << (enc.top - 1u)) & to_fwd) | ((p.x | kSel) & to_back) |
+         ((relax ? w.w0 & ~kSel : w.w0) & ~(to_fwd | to_back));
+  w.nm = fwd ? ms : back ? pm : w.nm;
+  w.m0 = fwd ? n0 : back ? __uint_as_float(p.z) : w.m0;
+  w.m1 = fwd ? n1 : back ? __uint_as_float(p.w) : w.m1;
+  w.cur = fwd ? w.cur + 1 : back ? prev : w.cur;
+  w.deepest = w.cur > w.deepest ? w.cur : w.deepest;
+  w.backtrack = back && (p.x & kSel) != 0u;
+  n.store(w.cur, record(w.w0, w.nm, w.m0, w.m1));
 }
 
 // Frames f = 0 .. frames-1 from the queue (gid = gid0 + f, lane = f / fpl),
@@ -243,7 +263,7 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
   Crew c;
   c.lane = threadIdx.x & 31u;
   c.set(0xffffffffu);
-  const Nodes n = Nodes::make(nodes, T, c.lane);
+  const Nodes n = Nodes::make(nodes, c.lane);
   const Encoder enc = Encoder::make(p.s);
 #if CC_SEQ_WIDE
   const RowMetrics m = {&p, reinterpret_cast<const float2*>(slot_table(tables, T, 2, c.lane))};
@@ -262,7 +282,7 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
       need &= need - 1u;
       const unsigned fj = __shfl_sync(c.alive, f, j);
       if (fj < frames) {   // bank lane j's finished frame
-        const Nodes nj = Nodes::make(nodes, T, j);
+        const Nodes nj = Nodes::make(nodes, j);
         const int deepest = __shfl_sync(c.alive, w.deepest, j);
         int err = 0;
         for (int t = c.rank; t < L; t += c.n)
@@ -297,7 +317,7 @@ fano_mc_kernel(long long* __restrict__ out, unsigned* __restrict__ queue, unsign
     if (!(c.alive >> c.lane & 1u)) break;
 #pragma unroll 1
     for (int i = 0; i < kStepsPerVote; ++i)
-      if (!w.done) fano_step(w, n, m, enc, T);
+      fano_step(w, n, m, enc, T);
   }
   walk_clock_leave(clock);   // the queue was empty: the lane leaves
 }
@@ -319,7 +339,7 @@ fano_decode_kernel(int* __restrict__ bits_out, float* __restrict__ metric,
   Crew c;
   c.lane = threadIdx.x & 31u;
   c.set(0xffffffffu);
-  const Nodes n = Nodes::make(nodes, T, c.lane);
+  const Nodes n = Nodes::make(nodes, c.lane);
   const Encoder enc = Encoder::make(p.s);
   FrameMetrics m = {&p, nullptr};
   unsigned b = frames;   // the frame being walked; none yet
@@ -333,7 +353,7 @@ fano_decode_kernel(int* __restrict__ bits_out, float* __restrict__ metric,
       need &= need - 1u;
       const unsigned bj = __shfl_sync(c.alive, b, j);
       if (bj < frames) {   // write lane j's finished frame
-        const Nodes nj = Nodes::make(nodes, T, j);
+        const Nodes nj = Nodes::make(nodes, j);
         const int deepest = __shfl_sync(c.alive, w.deepest, j);
         int* row = bits_out + (size_t)bj * L;
         for (int t = c.rank; t < L; t += c.n) row[t] = (int)node_bit(nj, t, deepest);
@@ -360,7 +380,7 @@ fano_decode_kernel(int* __restrict__ bits_out, float* __restrict__ metric,
     if (!(c.alive >> c.lane & 1u)) break;
 #pragma unroll 1
     for (int i = 0; i < kStepsPerVote; ++i)
-      if (!w.done) fano_step(w, n, m, enc, T);
+      fano_step(w, n, m, enc, T);
   }
 }
 

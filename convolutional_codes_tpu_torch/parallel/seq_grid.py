@@ -29,8 +29,9 @@ While a profiler session records (``utils/profiling.py``), each launch is
 the span ``mc_launch``, the reductions and the reads ``mc_readback``; the
 walks' iterations (the counters' third row) add to the counter
 ``walk_iters``, and each slot with two slices adds ``walk_cold_ns`` (its
-first slice's time) and ``walk_overlap_ns`` (the time both were in flight,
-0 where they were not).
+first slice's time), ``walk_overlap_ns`` (the time both were in flight,
+0 where they were not) and ``walk_cold_max_iters`` (the most iterations of
+a lane of its first slice: one frame a lane, so its longest walk's).
 """
 
 from __future__ import annotations
@@ -151,6 +152,9 @@ def seq_mc_grid(decoder: str, code: Code, lanes: int,
                                                    for out, _, _ in launched[k]]).cpu()
         if profiling.tracing():
             profiling.count("walk_iters", counts[:, 2].sum())
+            if len(slices) > 1:   # the cold slice's longest walk a slot
+                for k in launched:
+                    profiling.count("walk_cold_max_iters", launched[k][0][0][2].max())
         counts = mesh.sum_over_processes(counts)
 
     # each launch's start and end, in seconds from its device's origin

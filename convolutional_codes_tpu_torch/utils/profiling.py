@@ -34,6 +34,8 @@ once: one check, no allocation, no ``record_function``.
   ``ops/sequential_common.walk_clock``), ``walk_cold_ns`` and
   ``walk_overlap_ns`` (a sequential point's cold launch's time, and the
   time its warm launch ran beside it: ``parallel/seq_grid.py``),
+  ``walk_cold_max_iters`` (the iterations of the cold launch's longest
+  walk, a slot's most: ``parallel/seq_grid.py``),
   ``stream_windows`` and ``stream_positions`` (a long-frame launch's
   lanes x windows, and the distinct stream positions it generates, from
   its arguments: ``parallel/streaming.py``).  A

@@ -5,7 +5,7 @@ preamble and a point's record are ``sweep_plan`` and ``sweep_record``;
 ``walk_iters`` sums the walks' iteration rows; ``stream_windows`` and
 ``stream_positions`` count the stream leg's plan; the walk kernels' clock
 words stay pending on the device until ``counters()`` reads them; a
-point's two slices add their overlap.  All of
+point's two slices add their overlap and the cold slice's longest walk.  All of
 it records only under a profiler session: without one, nothing opens a
 span or moves a counter.  On the CPU the traces hold host activity only.
 """
@@ -221,6 +221,38 @@ def test_walk_overlap_counters_only_while_tracing(monkeypatch, traced):
     # two slots, each at least its 2 ms and at most the cold slice's time
     assert 2 * 2e6 <= got["walk_cold_ns"] <= 2 * cold.seconds * 1e9 + 1
     assert warm.seconds >= 2 * 3e-3
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_walk_cold_max_iters_only_while_tracing(monkeypatch, traced):
+    """Under a session, each slot of a point with two slices adds the most
+    iterations of a lane of its cold slice (one frame a lane: its longest
+    walk's), from the plain Fano walks; without a session nothing, and one
+    slice adds nothing."""
+    rows = []
+
+    def plain(*args, **kwargs):
+        kwargs.pop("device")
+        rows.append(mc_fano_ref(*args, **kwargs)[2])
+        return torch.stack([torch.zeros_like(rows[-1])] * 2 + [rows[-1]])
+
+    monkeypatch.setattr(seq_grid, "mc_fano", plain)
+    mesh = make_mesh({"frames": 2}, devices=[CPU] * 2)
+    session = profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext()
+    kw = dict(channel="bsc", timeout_per_bit=40)
+    with session:
+        seq_mc_grid("fano", get_code(0), 32, [(2, [12])], [0.05], mesh, **kw)
+        assert "walk_cold_max_iters" not in profiling.counters()
+        rows.clear()
+        seq_mc_grid("fano", get_code(0), 32, [(1, [12]), (2, [13])], [0.05], mesh, **kw)
+    got = profiling.counters()
+    if not traced:
+        assert got == {}
+        return
+    cold = rows[0::2]   # each slot launches its cold slice first
+    assert len(rows) == 4 and all(r.numel() == 16 for r in rows)
+    assert got["walk_cold_max_iters"] == sum(int(r.max()) for r in cold)
+    assert got["walk_cold_max_iters"] > 2 * get_code(0).num_block_symbols
 
 
 @pytest.mark.cuda
