@@ -17,6 +17,9 @@ of log/sqrt/sin/cos between the three math libraries.
 
 ``mc_chain_viterbi`` takes a ``device``: CPU runs the plain version, CUDA
 launches the kernel (counted in ``mc_chain_viterbi.launches``) or raises.
+The plain channel stage, :func:`awgn_distances` and :func:`bsc_flip_mask`,
+is also the plain versions' of kernels 6, 7 and 8 (``fused_longframe``,
+``mc_datagen``), each keyed by its own hash.
 
 ``variant="fast_demap"`` (the JAX package's opt-in variant, fused_chain.py
 :140-249) replaces the squared-distance vector by its linear form
@@ -218,6 +221,38 @@ def _snap(tables, dists: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return sxi, sxq
 
 
+def awgn_distances(tables, syms: torch.Tensor, u0: torch.Tensor, u1: torch.Tensor, sigma,
+                   demapper: str, dist_vec=_dist_vec) -> torch.Tensor:
+    """The plain AWGN stage of kernels 3, 6, 7 and 8: sent symbols ``syms``
+    (int64 indices) plus Box-Muller noise from the float32 uniforms ``u0``
+    and ``u1`` scaled by ``sigma``, demapped to ``[M, ...]`` distances by
+    ``dist_vec`` (:func:`_dist_vec`, or :func:`_dist_vec_lin` for
+    ``fast_demap``), of the received point (``"soft"``) or of its nearest
+    point (``"hard"``).  The kernels' float32 expression order:
+    ``sqrt(-2 log u0)``, ``float32(2 pi) * u1``, ``point + sigma * (r *
+    cos)``."""
+    sigma = torch.tensor(float(sigma), dtype=torch.float32)
+    r = torch.sqrt(-2.0 * torch.log(u0))
+    theta = torch.tensor(_TWO_PI, dtype=torch.float32) * u1
+    rxi = tables.points[syms, 0] + sigma * (r * torch.cos(theta))
+    rxq = tables.points[syms, 1] + sigma * (r * torch.sin(theta))
+    dists = dist_vec(tables, rxi, rxq)
+    if demapper == "hard":
+        dists = dist_vec(tables, *_snap(tables, dists))
+    return dists
+
+
+def bsc_flip_mask(syms: torch.Tensor, width: int, uniform, crossover) -> torch.Tensor:
+    """The plain BSC stage of kernels 3, 6, 7 and 8: the flip mask of
+    ``width``-bit sent symbols, bit ``k`` set where ``uniform(k)``, coded
+    bit k's float32 draw, is below the float32 crossover."""
+    crossover = torch.tensor(float(crossover), dtype=torch.float32)
+    fmask = torch.zeros_like(syms)
+    for k in range(width):
+        fmask = fmask | ((uniform(k) < crossover).to(torch.int64) << k)
+    return fmask
+
+
 def _check_args(code: Code, batch: int, Bt: int, channel: str, demapper: str) -> None:
     if channel not in CHANNELS:
         raise ValueError(f"channel must be one of {CHANNELS}, got {channel!r}")
@@ -252,7 +287,6 @@ def mc_chain_viterbi_ref(code: Code, batch: int, nsteps: int, seed, param,
     hbase = _hbase(int(seed), lane // Bt)
     t_idx = torch.arange(T, dtype=torch.int64, device=device)[:, None]
     plane = t_idx * Bt + (lane % Bt)[None, :]                # [T, B] flat index
-    param_f = torch.tensor(float(param), dtype=torch.float32)
     e_idx = torch.arange(M, dtype=torch.int64, device=device)[None, :, None]
     init = torch.full((S, batch), float(HARD_METRIC_SAT) if hard else BIG_METRIC,
                       dtype=torch.float32, device=device)
@@ -264,22 +298,13 @@ def mc_chain_viterbi_ref(code: Code, batch: int, nsteps: int, seed, param,
         bits = torch.where(t_idx < L, _interp_bits(plane, sbase, 0) & 1, 0)
         syms = encode_tb(code, bits[:L]).to(torch.int64)     # [T, B]
         if hard:
-            fmask = torch.zeros_like(syms)
-            for k in range(symlen):
-                u = _interp_uniform(k * T * Bt + plane, sbase, 1)
-                fmask = fmask | ((u < param_f).to(torch.int64) << k)
-            rx = syms ^ fmask
+            rx = syms ^ bsc_flip_mask(
+                syms, symlen, lambda k: _interp_uniform(k * T * Bt + plane, sbase, 1), param)
             dists = popcount32(rx[:, None, :] ^ e_idx).to(torch.float32)
         else:
             u0 = _interp_uniform(plane, sbase, 2)
             u1 = _interp_uniform(T * Bt + plane, sbase, 2)
-            r = torch.sqrt(-2.0 * torch.log(u0))
-            theta = torch.tensor(_TWO_PI, dtype=torch.float32) * u1
-            rxi = tables.points[syms, 0] + param_f * (r * torch.cos(theta))
-            rxq = tables.points[syms, 1] + param_f * (r * torch.sin(theta))
-            dists = dist_vec(tables, rxi, rxq)               # [M, T, B]
-            if demapper == "hard":
-                dists = dist_vec(tables, *_snap(tables, dists))
+            dists = awgn_distances(tables, syms, u0, u1, param, demapper, dist_vec)  # [M, T, B]
             dists = dists.permute(1, 0, 2)                   # [T, M, B]
         fm, dec = acs_scan(code, dists.contiguous(), init, hard)
         decoded = traceback_from(code, dec, first_argmin(fm, dim=0))  # [B, T]

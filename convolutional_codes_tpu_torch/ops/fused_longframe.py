@@ -43,7 +43,7 @@ from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.encoder import register_symbols
 from convolutional_codes_tpu_torch.ops.fused_chain import (
-    CHANNELS, DEMAPPERS, MAX_STATES, _TWO_PI, _dist_vec, _snap, flip_threshold)
+    CHANNELS, DEMAPPERS, MAX_STATES, awgn_distances, bsc_flip_mask, flip_threshold)
 from convolutional_codes_tpu_torch.ops.viterbi import (
     HARD_METRIC_SAT, acs_scan, hard_branch_metrics, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import MASK32, first_argmin, mul32
@@ -122,23 +122,14 @@ def stream_segment_host(code: Code, lane_ids, seed: int, param, channel: str,
         reg = reg | (bits[:, K - 1 - age: K - 1 - age + length] << (K - 1 - age))
     esym = register_symbols(code, reg)
     ppos = pos[:, K - 1:]
-    param_f = torch.tensor(float(param), dtype=torch.float32)
     if channel == "bsc":
-        fmask = torch.zeros_like(esym)
-        for k in range(code.symlen_out):
-            flip = coord_uniform(lanes, ppos, seed, 1 + k) < param_f
-            fmask = fmask | (flip.to(torch.int64) << k)
+        fmask = bsc_flip_mask(esym, code.symlen_out,
+                              lambda k: coord_uniform(lanes, ppos, seed, 1 + k), param)
         dists = hard_branch_metrics(code, esym ^ fmask).to(torch.float32)
     else:
         u0 = coord_uniform(lanes, ppos, seed, 1)
         u1 = coord_uniform(lanes, ppos, seed, 2)
-        r = torch.sqrt(-2.0 * torch.log(u0))
-        theta = torch.tensor(_TWO_PI, dtype=torch.float32) * u1
-        rxi = tables.points[esym, 0] + param_f * (r * torch.cos(theta))
-        rxq = tables.points[esym, 1] + param_f * (r * torch.sin(theta))
-        dvec = _dist_vec(tables, rxi, rxq)                       # [M, B, length]
-        if demapper == "hard":
-            dvec = _dist_vec(tables, *_snap(tables, dvec))
+        dvec = awgn_distances(tables, esym, u0, u1, param, demapper)  # [M, B, length]
         dists = dvec.permute(1, 2, 0).contiguous()
     return bits[:, K - 1:].to(torch.int32), dists
 

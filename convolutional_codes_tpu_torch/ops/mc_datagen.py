@@ -27,7 +27,7 @@ import torch
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.models.tables import code_tables
 from convolutional_codes_tpu_torch.ops.encoder import encode_stream
-from convolutional_codes_tpu_torch.ops.fused_chain import _TWO_PI, _dist_vec, _snap
+from convolutional_codes_tpu_torch.ops.fused_chain import awgn_distances, bsc_flip_mask
 from convolutional_codes_tpu_torch.ops.fused_longframe import coord_bits, coord_uniform
 from convolutional_codes_tpu_torch.utils.build import check_status, load_library
 
@@ -61,23 +61,14 @@ def make_datagen(code: Code, T: int, L: int, channel: str, demapper: str):
         row = torch.arange(T, dtype=torch.int64, device=gid.device)[None, :]
         bits = torch.where(row < L, coord_bits(g, row, seed, 0) & 1, 0)
         esym = encode_stream(code, bits[:, :L]).to(torch.int64)      # [N, T]
-        param_f = torch.tensor(float(param), dtype=torch.float32)
         if channel == "awgn":
             u0 = coord_uniform(g, row, seed, 1)
             u1 = coord_uniform(g, row, seed, 2)
-            r = torch.sqrt(-2.0 * torch.log(u0))
-            theta = torch.tensor(_TWO_PI, dtype=torch.float32) * u1
-            rxi = tables.points[esym, 0] + param_f * (r * torch.cos(theta))
-            rxq = tables.points[esym, 1] + param_f * (r * torch.sin(theta))
-            dists = _dist_vec(tables, rxi, rxq)                     # [M, N, T]
-            if demapper == "hard":
-                dists = _dist_vec(tables, *_snap(tables, dists))
+            dists = awgn_distances(tables, esym, u0, u1, param, demapper)  # [M, N, T]
             syms = dists.permute(1, 2, 0).contiguous()
         else:
-            fmask = torch.zeros_like(esym)
-            for k in range(symlen):
-                flip = coord_uniform(g, row, seed, 1 + k) < param_f
-                fmask = fmask | (flip.to(torch.int64) << k)
+            fmask = bsc_flip_mask(esym, symlen, lambda k: coord_uniform(g, row, seed, 1 + k),
+                                  param)
             syms = (esym ^ fmask).to(torch.int32)
         return bits.to(torch.int32), syms
 

@@ -6,7 +6,10 @@ Mirrors the reference drivers' sweeps (SNR grid and sample tiers,
 produces one record per point, on one device or across a mesh
 (``parallel/mesh.py``).
 
-Legs (as in the reference package's ``sim/sweep.py``):
+Legs (as in the reference package's ``sim/sweep.py``), decided once a
+sweep by :func:`_leg`, by the first of these rules that holds (uncoded,
+stack/Fano, stream, fused, modular); every leg but the sequential one runs
+its points through one chunk loop (:func:`_chunked`):
   * fused: every config :func:`fused_mc_eligible` accepts runs in the fused
     Monte-Carlo chain — the CUDA kernel on a CUDA device, its plain version
     on the CPU — with the reference's per-chunk seeds, so a CPU run gives
@@ -49,12 +52,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
 import shutil
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -291,6 +295,152 @@ def point_traces(trace_dir: Optional[str], points: Sequence[float]):
         shutil.copytree(dirs[0], d, dirs_exist_ok=True)
 
 
+@dataclasses.dataclass
+class _Leg:
+    """What :func:`run_sweep` needs of the leg that runs a spec, decided
+    once by :func:`_leg`.  ``batches(pending)`` yields the pending points
+    ``(index, point, param, nsteps)`` in the batches that run side by side,
+    each with the function that runs it, which returns per point
+    (bit_errors, frame_errors, bits, warm_bits, warm_wall_s)."""
+
+    code: str                           # the records' code and decoder
+    decoder: str
+    to_param: Callable[[float], float]  # a point's sigma or crossover
+    frame_bits: int                     # info bits a frame (stream: a window)
+    bits_per_call: int                  # info bits a step over every slot
+    batches: Callable
+
+
+def _leg(spec: SweepSpec, code: Code, mesh, device: torch.device) -> _Leg:
+    """The leg that runs ``spec``, by the first of these rules that holds:
+    uncoded, the nearest-point baseline through the step chain; stack or
+    Fano, the sequential leg; ``stream_window`` > 0, the stream leg (kernel
+    6); :func:`fused_mc_eligible`, the fused leg (kernel 3, on lanes
+    rounded up to 1024s); else the modular step chain.  A stream chunk's
+    windows are split over a ``frames`` mesh's slots, so its bits do not
+    scale with them.  ``fused_mc_accumulate`` is looked up at each call."""
+    frames, ndev = spec.frames_per_step, frames_axis_size(mesh)
+    frames_mesh = mesh if mesh is not None and "frames" in mesh.axis_names else None
+    name, decoder, frame_bits = code.name, spec.decoder, code.block_length
+    to_param = (lambda p: float(awgn_sigma(p))) if spec.channel == "awgn" else float
+    if spec.channel == "uncoded":
+        width = code.symlen_out
+        name, decoder, frame_bits = f"uncoded-{width}bit", "argmin", width
+        to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=width))
+        batches = _chain(spec, lambda dev: make_uncoded_step(width, frames, dev),
+                         frames * width, mesh, frames_mesh, device)
+    elif spec.decoder in ("stack", "fano"):
+        batches = functools.partial(_sequential_batches, spec, code, mesh, device)
+    elif spec.stream_window > 0:
+        frame_bits, ndev = spec.stream_window, 1
+        one = lambda seeds, n, params: stream_mc_counts(
+            code, frames, n, seeds[0], params[0], spec.channel, spec.demapper,
+            spec.stream_window, spec.stream_warmup, frames_mesh, device)
+        batches = _chunked(spec, mesh, frames * frame_bits, one)
+    elif fused_mc_eligible(code, spec.channel, spec.decoder, spec.demapper):
+        frames = max(1024, -(-frames // 1024) * 1024)
+        one = lambda seeds, n, params: fused_mc_accumulate(
+            code, n, seeds[0], params[0], frames, frames_mesh, channel=spec.channel,
+            demapper=spec.demapper, device=device)
+        grid = lambda seeds, n, params: fused_grid_accumulate(
+            code, n, seeds, params, frames, mesh, spec.channel, spec.demapper)
+        batches = _chunked(spec, mesh, frames * frame_bits, one, grid)
+    else:
+        build = lambda dev: make_point_step(code, spec.channel, spec.decoder,
+                                            spec.demapper, frames, device=dev)
+        batches = _chain(spec, build, frames * frame_bits, mesh, frames_mesh, device)
+    return _Leg(name, decoder, to_param, frame_bits, frames * frame_bits * ndev, batches)
+
+
+def _chain(spec: SweepSpec, build, step_bits: int, mesh, frames_mesh, device):
+    """:func:`_chunked` batches of a step chain: ``build(device)`` gives a
+    step bound to one device, built here for each distinct slot device."""
+    if frames_mesh is not None:
+        step = per_device(build, frames_mesh)
+        one = lambda seeds, n, params: frames_accumulate(
+            step, n, seeds[0], params[0], frames_mesh)
+    else:
+        step = build(device)
+        one = lambda seeds, n, params: sharded_accumulate(
+            step, n, torch.Generator(device=device).manual_seed(seeds[0]), params[0])
+    grid = lambda seeds, n, params: grid_accumulate_with_keys(step, n, seeds, params, mesh)
+    return _chunked(spec, mesh, step_bits, one, grid)
+
+
+def _chunked(spec: SweepSpec, mesh, step_bits: int, one, grid=None):
+    """``batches`` of a leg that runs chunk by chunk, ``step_bits`` (a
+    step's info bits on one slot) sizing the chunks.  ``one([seed], n,
+    [param])`` runs ``n`` steps of a point and gives host ints (bit_errors,
+    frame_errors, bits); ``grid(seeds, n, params)`` runs R points side by
+    side on a sweep×frames mesh, R the ``sweep`` axis size, ``seeds`` [R,
+    frames], and gives int64 arrays [R].  There, points of equal step
+    counts run R at a time and the rest one at a time; elsewhere every
+    point runs alone, in index order."""
+    chunk = max(1, CHUNK_BITS // max(1, step_bits))
+    ndev = frames_axis_size(mesh)
+
+    def run(call, batch):
+        """The R points of ``batch`` (one step count) chunk by chunk, chunk
+        ``ci`` from the points' ``_chunk_seed(spec.seed, i, ci)``.  A point
+        that fits one chunk runs a small cold chunk first, so that it still
+        records a warm rate (reference sweep.py:601): the bits and host time
+        after chunk 0, which pays the warm-up, amortised over the R points."""
+        R, nsteps = len(batch), batch[0][3]
+        tot = np.zeros((3, R), np.int64)
+        left, ci = nsteps, 0
+        while left > 0:
+            n = min(chunk, left)
+            if ci == 0 and n == nsteps and n > 1:
+                n = max(1, n // 8)
+            seeds = [_chunk_seed(spec.seed, it[0], ci) for it in batch]
+            tot += np.array(call(seeds, n, [it[2] for it in batch]), np.int64).reshape(3, R)
+            if ci == 0:    # the counters are host ints: the device is done
+                cold, t_warm = tot[2].copy(), time.time()
+            left, ci = left - n, ci + 1
+        ww = (time.time() - t_warm) / R if ci > 1 else 0.0
+        return [(*map(int, tot[:, r]), int(tot[2, r] - cold[r]), ww) for r in range(R)]
+
+    def batches(pending):
+        rest = pending
+        if grid is not None and mesh is not None and {"sweep", "frames"} <= set(mesh.axis_names):
+            Ds, by_steps, rest = mesh.shape["sweep"], {}, []
+            on_grid = lambda seeds, n, params: grid(
+                [[device_seed(x, d) for d in range(ndev)] for x in seeds], n, params)
+            for item in pending:
+                by_steps.setdefault(item[3], []).append(item)
+            for group in by_steps.values():
+                cut = len(group) - len(group) % Ds
+                for k in range(0, cut, Ds):
+                    yield group[k:k + Ds], functools.partial(run, on_grid)
+                rest += group[cut:]
+        for item in sorted(rest):
+            yield [item], functools.partial(run, one)
+
+    return batches
+
+
+def _sequential_batches(spec: SweepSpec, code: Code, mesh, device, pending):
+    """Stack/Fano: the points of one :func:`seq_plan` side by side over the
+    mesh's slots (one slot without a mesh), as many as a grouping of the
+    slots that divides the lanes takes, each run by
+    :func:`sequential_points`."""
+    one = one_slot(device)
+    grid = mesh if mesh is not None else one
+    by_plan = {}
+    for item in pending:
+        by_plan.setdefault(seq_plan(target_bits(spec, item[1]), code.block_length),
+                           []).append(item)
+    for (lanes, _), group in sorted(by_plan.items()):
+        while group:
+            R = next((d for d in range(min(len(group), grid.size), 0, -1)
+                      if grid.size % d == 0 and lanes % (grid.size // d) == 0), 0)
+            # no grouping of the slots divides the lanes: the first slot alone
+            batch, group = group[:max(R, 1)], group[max(R, 1):]
+            slots = grid if R else one
+            yield batch, lambda b, slots=slots: sequential_points(
+                spec, code, [it[:3] for it in b], slots)
+
+
 def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
               verbose: bool = True, device="cuda") -> List[PointRecord]:
     """Run the sweep on ``device`` or across ``mesh``, resumable via a JSON
@@ -298,40 +448,13 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
     state).  With a mesh, a chunk simulates ``frames`` axis size times the
     bits, and the pieces that run on one device run on the mesh's first
     slot."""
-    with annotate("sweep_plan"):   # the code, the fingerprint, the checkpoint, the steps
+    with annotate("sweep_plan"):   # the code, the fingerprint, the checkpoint, the leg
         code = spec.resolve_code()
         points = spec.resolve_points()
         device = torch.device(mesh.slots()[0][0] if mesh is not None else device)
-        frames_mesh = mesh if mesh is not None and "frames" in mesh.axis_names else None
-        ndev = frames_axis_size(mesh)
-        uncoded = spec.channel == "uncoded"
-        frames = spec.frames_per_step
-
-        sequential = not uncoded and spec.decoder in ("stack", "fano")
-        stream = spec.stream_window > 0
-        frame_bits = (code.symlen_out if uncoded else
-                      spec.stream_window if stream else code.block_length)
-        if uncoded:
-            to_param = lambda p: float(awgn_sigma(p, info_bits_per_symbol=code.symlen_out))
-        else:
-            to_param = (lambda p: float(awgn_sigma(p))) if spec.channel == "awgn" else float
-
         spec_fp = _spec_fingerprint(spec, code)
         done_points = _load_checkpoint(checkpoint_path, spec_fp) if checkpoint_path else {}
-
-        use_fused = (not uncoded and not stream and fused_mc_eligible(
-            code, spec.channel, spec.decoder, spec.demapper))
-        eff_frames = max(1024, -(-frames // 1024) * 1024) if use_fused else frames
-        step = None
-        if uncoded or not (sequential or use_fused or stream):
-            # the chain's steps are built for one device: one per distinct slot device
-            build = ((lambda dev: make_uncoded_step(code.symlen_out, frames, dev)) if uncoded
-                     else (lambda dev: make_point_step(code, spec.channel, spec.decoder,
-                                                       spec.demapper, frames, device=dev)))
-            step = per_device(build, frames_mesh) if frames_mesh else build(device)
-        # a stream chunk's windows are split over the slots: its bits do not scale
-        bits_per_call = eff_frames * frame_bits * (1 if stream else ndev)
-        chunk = max(1, CHUNK_BITS // max(1, eff_frames * frame_bits))
+        leg = _leg(spec, code, mesh, device)
 
         # plan: (index, point, param, nsteps) for every point not checkpointed
         records_by_idx = {}
@@ -340,135 +463,35 @@ def run_sweep(spec: SweepSpec, mesh=None, checkpoint_path: Optional[str] = None,
             if point in done_points:
                 records_by_idx[i] = PointRecord(**done_points[point])
                 continue
-            pending.append((i, point, to_param(point),
-                            max(1, -(-target_bits(spec, point) // bits_per_call))))
+            pending.append((i, point, leg.to_param(point),
+                            max(1, -(-target_bits(spec, point) // leg.bits_per_call))))
 
-    def finish_point(i, point, param, be, fe, nb, wall, warm_bits, warm_wall):
-        with annotate("sweep_record"):
-            rate = (warm_bits / warm_wall if warm_wall > 0
-                    else (nb / wall if wall > 0 else float("inf")))
-            rec = PointRecord(
-                code=f"uncoded-{code.symlen_out}bit" if uncoded else code.name,
-                channel=spec.channel,
-                decoder="argmin" if uncoded else spec.decoder,
-                demapper=spec.demapper, point=float(point), param=param,
-                bits=nb, bit_errors=be, frame_errors=fe,
-                frames=nb // frame_bits, ber=be / nb, fer=fe / (nb // frame_bits),
-                wall_s=wall, bits_per_s=rate,
-                warm_bits=warm_bits, warm_wall_s=warm_wall)
-            records_by_idx[i] = rec
-            if verbose:
-                print(f"[{spec.channel}/{spec.decoder}/{spec.demapper} {code.name}] "
-                      f"point={point:g} bits={nb:.3g} BER={rec.ber:.6e} "
-                      f"FER={rec.fer:.3e} {rec.bits_per_s:.3e} bits/s", flush=True)
-            if checkpoint_path:
-                done_points[point] = rec.to_dict()
-                payload = {str(k): v for k, v in done_points.items()}
-                payload["__spec__"] = spec_fp
-                with open(checkpoint_path, "w") as f:
-                    json.dump(payload, f)
-
-    def chunks(nsteps):
-        """(chunk index, steps) of a point: a point that fits one chunk runs
-        a small cold chunk first, so that it still records a warm rate
-        (reference sweep.py:601).  The partition feeds the seeds, so every
-        leg takes it from here."""
-        left, ci = nsteps, 0
-        while left > 0:
-            n = min(chunk, left)
-            if ci == 0 and n == nsteps and n > 1:
-                n = max(1, n // 8)
-            yield ci, n
-            left -= n
-            ci += 1
-
-    # ---- the sweep×frames grid: equal step counts side by side over `sweep`
-    if (mesh is not None and not sequential and not stream and "sweep" in mesh.axis_names
-            and frames_mesh is not None):
-        Ds = mesh.shape["sweep"]
-        by_steps = {}
-        for item in pending:
-            by_steps.setdefault(item[3], []).append(item)
-        pending = []
-        for nsteps, group in by_steps.items():
-            while len(group) >= Ds:
-                batch, group = group[:Ds], group[Ds:]
-                prms = [it[2] for it in batch]
-                tot = np.zeros((3, Ds), np.int64)
-                warm = np.zeros(Ds, np.int64)
-                t0 = tc = time.time()
-                ww = 0.0
-                with point_traces(spec.trace_dir, [it[1] for it in batch]):
-                    for ci, n in chunks(nsteps):
-                        seeds = [[device_seed(_chunk_seed(spec.seed, it[0], ci), d)
-                                  for d in range(ndev)] for it in batch]
-                        if use_fused:
-                            out = fused_grid_accumulate(code, n, seeds, prms, eff_frames,
-                                                        mesh, spec.channel, spec.demapper)
-                        else:
-                            out = grid_accumulate_with_keys(step, n, seeds, prms, mesh)
-                        tot += np.stack(out)
-                        if ci > 0:                      # chunk 0 pays the warm-up
-                            warm += out[2]
-                            ww += time.time() - tc
-                        tc = time.time()
-                wall = (time.time() - t0) / Ds       # side by side: amortised
-                for r, (i, point, param, _) in enumerate(batch):
-                    finish_point(i, point, param, int(tot[0, r]), int(tot[1, r]),
-                                 int(tot[2, r]), wall, int(warm[r]), ww / Ds)
-            pending.extend(group)
-        pending.sort()
-
-    # ---- stack/Fano: points of one plan side by side over the mesh's slots
-    if sequential:
-        one = one_slot(device)
-        grid = mesh if mesh is not None else one
-        by_plan = {}
-        for item in pending:
-            by_plan.setdefault(seq_plan(target_bits(spec, item[1]), frame_bits),
-                               []).append(item)
-        pending = []
-        for (lanes, _), group in sorted(by_plan.items()):
-            while group:
-                R = next((d for d in range(min(len(group), grid.size), 0, -1)
-                          if grid.size % d == 0 and lanes % (grid.size // d) == 0), 0)
-                # no grouping of the slots divides the lanes: the first slot alone
-                batch, group = group[:max(R, 1)], group[max(R, 1):]
-                t0 = time.time()
-                with point_traces(spec.trace_dir, [it[1] for it in batch]):
-                    outs = sequential_points(spec, code, [it[:3] for it in batch],
-                                             grid if R else one)
-                wall = (time.time() - t0) / len(batch)   # side by side: amortised
-                for (i, point, param, _), (be, fe, nb, wb, ww) in zip(batch, outs):
-                    finish_point(i, point, param, be, fe, nb, wall, wb, ww)
-
-    for i, point, param, nsteps in pending:
-        t0 = tc = time.time()
-        be = fe = nb = wb = 0
-        ww = 0.0
-        with point_traces(spec.trace_dir, [point]):
-            for ci, n in chunks(nsteps):
-                seed_c = _chunk_seed(spec.seed, i, ci)
-                if stream:
-                    cbe, cfe, cnb = stream_mc_counts(
-                        code, frames, n, seed_c, param, spec.channel, spec.demapper,
-                        spec.stream_window, spec.stream_warmup, frames_mesh, device)
-                elif use_fused:
-                    cbe, cfe, cnb = fused_mc_accumulate(
-                        code, n, seed_c, param, eff_frames, frames_mesh,
-                        channel=spec.channel, demapper=spec.demapper, device=device)
-                elif frames_mesh is not None:
-                    cbe, cfe, cnb = frames_accumulate(step, n, seed_c, param, frames_mesh)
-                else:
-                    gen = torch.Generator(device=device).manual_seed(seed_c)
-                    cbe, cfe, cnb = sharded_accumulate(step, n, gen, param)
-                be += cbe          # the counters are host ints: the device is done
-                fe += cfe
-                nb += cnb
-                if ci > 0:                          # chunk 0 pays the warm-up
-                    wb += cnb
-                    ww += time.time() - tc
-                tc = time.time()
-        finish_point(i, point, param, be, fe, nb, time.time() - t0, wb, ww)
+    for batch, run in leg.batches(pending):
+        t0 = time.time()
+        with point_traces(spec.trace_dir, [it[1] for it in batch]):
+            outs = run(batch)
+        wall = (time.time() - t0) / len(batch)       # side by side: amortised
+        for (i, point, param, _), (be, fe, nb, warm_bits, warm_wall) in zip(batch, outs):
+            with annotate("sweep_record"):
+                rate = (warm_bits / warm_wall if warm_wall > 0
+                        else (nb / wall if wall > 0 else float("inf")))
+                rec = PointRecord(
+                    code=leg.code, channel=spec.channel, decoder=leg.decoder,
+                    demapper=spec.demapper, point=float(point), param=param,
+                    bits=nb, bit_errors=be, frame_errors=fe,
+                    frames=nb // leg.frame_bits, ber=be / nb, fer=fe / (nb // leg.frame_bits),
+                    wall_s=wall, bits_per_s=rate,
+                    warm_bits=warm_bits, warm_wall_s=warm_wall)
+                records_by_idx[i] = rec
+                if verbose:
+                    print(f"[{spec.channel}/{spec.decoder}/{spec.demapper} {code.name}] "
+                          f"point={point:g} bits={nb:.3g} BER={rec.ber:.6e} "
+                          f"FER={rec.fer:.3e} {rec.bits_per_s:.3e} bits/s", flush=True)
+                if checkpoint_path:
+                    done_points[point] = rec.to_dict()
+                    payload = {str(k): v for k, v in done_points.items()}
+                    payload["__spec__"] = spec_fp
+                    with open(checkpoint_path, "w") as f:
+                        json.dump(payload, f)
 
     return [records_by_idx[i] for i in sorted(records_by_idx)]

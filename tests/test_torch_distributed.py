@@ -6,35 +6,26 @@ the dry run of every mesh leg and the scaling harness.
 Tolerances: exact (integer counters of the same seeds and frame ids).
 """
 
-import json
-import os
-import socket
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 import torch
 
 from convolutional_codes_tpu_torch.parallel import distributed
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from tests import two_process
 
 #: run by each process: 2 CPU slots of its own, 4 in all
-WORKER = r"""
+WORKER = two_process.JOIN + r"""
 import json, sys
 import torch
 torch.set_num_threads(1)
 from convolutional_codes_tpu_torch.models.codebook import get_code
 from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
-from convolutional_codes_tpu_torch.parallel.distributed import initialize_from_env
 from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
 from convolutional_codes_tpu_torch.parallel.montecarlo import (
     frames_accumulate, fused_mc_accumulate, per_device)
 from convolutional_codes_tpu_torch.parallel.seq_grid import seq_mc_grid
 from convolutional_codes_tpu_torch.sim.chain import make_point_step
 
-joined = initialize_from_env(verbose=False)
 n = int(sys.argv[1])
 cpu = torch.device("cpu")
 code = get_code(0)
@@ -52,13 +43,8 @@ for dec in ("stack", "fano"):
                 for sl in seq_mc_grid(dec, code, 64, [(1, [13, 14]), (1, [15, 16])],
                                       [0.03, 0.05], grid, channel="bsc", timeout_per_bit=20)]
 print(json.dumps(out))
-"""
+""" + two_process.LEAVE
 
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def test_initialize_noop_without_env(monkeypatch):
@@ -111,23 +97,9 @@ def test_two_processes_equal_one():
     ``frames_accumulate``, ``fused_mc_accumulate`` and ``seq_mc_grid``
     (stack and Fano), each process running its own slots and the counters
     summed with ``all_reduce``."""
-    base = {k: v for k, v in os.environ.items() if k not in distributed.ENV}
-    base.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
-    port = str(_free_port())
-    envs = [base] + [dict(base, MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="2",
-                          RANK=str(r)) for r in range(2)]
-    procs = [subprocess.Popen(      # the one-process run and the two side by side
-        [sys.executable, "-c", WORKER, n], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env) for n, env in zip("422", envs)]
-    outs = []
-    for p in procs:
-        try:
-            stdout, stderr = p.communicate(timeout=300)
-        finally:
-            p.kill()
-        assert p.returncode == 0, stderr
-        outs.append(json.loads(stdout.strip().splitlines()[-1]))
-    ref, outs = outs[0], outs[1:]
+    pair = two_process.Pair(WORKER, 2)    # the two and the one-process run side by side
+    ref = two_process.alone(WORKER, 4)
+    outs = pair.results()
     assert ref["joined"] is False and ref["world"] == 1
     for rank, got in enumerate(outs):
         assert got["joined"] is True and (got["world"], got["rank"]) == (2, rank)

@@ -9,18 +9,11 @@ Tolerances: exact (the halos are the same float32 symbols whichever way
 they travel, and each block runs the same plain ACS and traceback).
 """
 
-import json
-import os
-import socket
-import subprocess
-import sys
-
 import numpy as np
 import torch
 
-from convolutional_codes_tpu_torch.parallel import distributed
+from tests import two_process
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, W, SNR_DB, SEED = 2, 1024, 96, 4.0, 5
 
 #: the stream both sides decode, from numpy: (code, [B, T, M] distances)
@@ -46,37 +39,17 @@ def noisy_stream(B, T, snr_db, seed):
 """
 
 #: run by each process: argv = local CPU slots
-WORKER = STREAM + f"""
+WORKER = STREAM + two_process.JOIN + f"""
 import json, sys
-from convolutional_codes_tpu_torch.parallel.distributed import initialize_from_env
 from convolutional_codes_tpu_torch.parallel.mesh import make_mesh
 from convolutional_codes_tpu_torch.parallel.streaming import streaming_viterbi_decode
 
-joined = initialize_from_env(verbose=False)
 code, dists = noisy_stream({B}, {T}, {SNR_DB}, {SEED})
 mesh = make_mesh({{"seq": -1}}, devices=[torch.device("cpu")] * int(sys.argv[1]))
 bits = streaming_viterbi_decode(code, dists, mesh, warmup={W})
 print(json.dumps({{"joined": joined, "world": mesh.world, "rank": mesh.rank,
                   "slots": mesh.size, "bits": bits.tolist()}}))
-"""
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _run_pair(local_slots: int):
-    base = {k: v for k, v in os.environ.items() if k not in distributed.ENV}
-    base.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
-    port = str(_free_port())
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(local_slots)], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
-        env=dict(base, MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="2",
-                 RANK=str(r))) for r in range(2)]
-    return procs
+""" + two_process.LEAVE
 
 
 def test_two_processes_decode_as_one():
@@ -87,20 +60,15 @@ def test_two_processes_decode_as_one():
     from convolutional_codes_tpu_torch.parallel.streaming import (
         long_frame_decode_stream, streaming_viterbi_decode)
 
-    pairs = {n: _run_pair(n) for n in (1, 2)}      # both pairs side by side
+    ports = two_process.free_ports(2)               # both pairs side by side
+    pairs = {n: two_process.Pair(WORKER, n, port=port) for n, port in zip((1, 2), ports)}
     exact = long_frame_decode_stream(code, dists)
-    for n, procs in pairs.items():
+    for n, pair in pairs.items():
         one = streaming_viterbi_decode(
             code, dists, make_mesh({"seq": 2 * n}, devices=[torch.device("cpu")] * (2 * n)),
             warmup=W)
         assert torch.equal(one, exact), n          # the one-process decode is exact here
-        for rank, p in enumerate(procs):
-            try:
-                stdout, stderr = p.communicate(timeout=300)
-            finally:
-                p.kill()
-            assert p.returncode == 0, stderr
-            got = json.loads(stdout.strip().splitlines()[-1])
+        for rank, got in enumerate(pair.results()):
             assert got["joined"] and (got["world"], got["rank"], got["slots"]) == (2, rank, 2 * n)
             assert np.array_equal(np.asarray(got["bits"], dtype=np.int32), one.numpy()), (n, rank)
     assert 0 < int(exact.sum()) < exact.numel()

@@ -239,7 +239,9 @@ def test_walk_cold_max_iters_only_while_tracing(monkeypatch, traced):
     monkeypatch.setattr(seq_grid, "mc_fano", plain)
     mesh = make_mesh({"frames": 2}, devices=[CPU] * 2)
     session = profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext()
-    kw = dict(channel="bsc", timeout_per_bit=40)
+    # a budget of 2 T: walks at p = 0.05 reach it, and the plain walks
+    # stay short under the profiler, which records each of their operations
+    kw = dict(channel="bsc", timeout_per_bit=2)
     with session:
         seq_mc_grid("fano", get_code(0), 32, [(2, [12])], [0.05], mesh, **kw)
         assert "walk_cold_max_iters" not in profiling.counters()
