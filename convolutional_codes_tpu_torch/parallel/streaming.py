@@ -33,18 +33,19 @@ exponentially in the warm-up length.
 :func:`streaming_mc_accumulate` is the Monte-Carlo side: one fused
 long-frame kernel call (``ops/fused_longframe.py``), or one per slot of a
 mesh, each on its own time range of the same hash-addressed streams;
-:func:`stream_mc_counts`, ``run_sweep``'s stream leg, reads its counters
-back once.  While a profiler session records (``utils/profiling.py``),
-each launch is the span ``mc_launch`` and adds the counters
-``stream_windows`` (lanes x windows decoded) and ``stream_positions``
-(distinct stream positions generated: lanes x (windows x window + 2 x
-warmup)), and the counters' reduction and reads to the host are
-``mc_readback``.
+:func:`stream_mc_counts`, ``run_sweep``'s stream leg, enqueues the same
+launches and reduces their counters on the card into a
+``parallel/montecarlo.Tally``, which the leg reads once a point.  While a
+profiler session records (``utils/profiling.py``), each launch is the span
+``mc_launch`` and adds the counters ``stream_windows`` (lanes x windows
+decoded) and ``stream_positions`` (distinct stream positions generated:
+lanes x (windows x window + 2 x warmup)), and the counters' reduction and
+reads to the host are ``mc_readback``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -52,6 +53,7 @@ import torch.distributed as dist
 from convolutional_codes_tpu_torch.models.codebook import Code
 from convolutional_codes_tpu_torch.ops.fused_longframe import mc_longframe_viterbi
 from convolutional_codes_tpu_torch.parallel.mesh import Mesh, make_mesh
+from convolutional_codes_tpu_torch.parallel.montecarlo import Tally
 from convolutional_codes_tpu_torch.ops.longframe_cuda import (
     stream_acs_cuda, stream_traceback_cuda)
 from convolutional_codes_tpu_torch.ops.viterbi import (
@@ -230,6 +232,17 @@ def _mc_launch(code: Code, lanes: int, windows: int, seed, param, channel: str,
     return out
 
 
+def _time_ranges(windows: int, mesh: Mesh) -> List[Tuple[torch.device, int, int]]:
+    """(device, first window, windows) of this process's slots of ``mesh``
+    that decode any window: slot ``k`` (in axis order) of D takes ``windows
+    // D`` windows, the first ``windows % D`` slots one more, each range
+    starting where the slot before it ends."""
+    base, extra = divmod(windows, mesh.size)
+    win0 = [k * base + min(k, extra) for k in range(mesh.size + 1)]
+    return [(dev, win0[k], win0[k + 1] - win0[k]) for k, (dev, rank) in enumerate(mesh.slots())
+            if rank == mesh.rank and win0[k + 1] > win0[k]]
+
+
 def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,
                             channel: str = "awgn", demapper: str = "soft",
                             window: int = 1920, warmup: int = 128, mesh: Mesh = None,
@@ -254,13 +267,8 @@ def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,
         be, we = _mc_launch(code, lanes, windows, seed, param, channel, demapper, window,
                             warmup, 0, device)
         return be, we, lanes * windows * window
-    ndev = mesh.size
-    base, extra = divmod(windows, ndev)
-    win0 = [k * base + min(k, extra) for k in range(ndev + 1)]
-    outs = [_mc_launch(code, lanes, win0[k + 1] - win0[k], seed, param, channel, demapper,
-                       window, warmup, win0[k], dev)
-            for k, (dev, rank) in enumerate(mesh.slots())
-            if rank == mesh.rank and win0[k + 1] > win0[k]]
+    outs = [_mc_launch(code, lanes, n, seed, param, channel, demapper, window, warmup, w0, dev)
+            for dev, w0, n in _time_ranges(windows, mesh)]
     with annotate("mc_readback"):
         counts = torch.zeros((2, lanes), dtype=torch.int64)
         for be, we in outs:   # the host reduction
@@ -269,18 +277,18 @@ def streaming_mc_accumulate(code: Code, lanes: int, windows: int, seed, param,
     return counts[0], counts[1], lanes * windows * window
 
 
-def stream_mc_counts(code: Code, lanes: int, windows: int, seed, param,
+def stream_mc_counts(tally: Tally, code: Code, lanes: int, windows: int, seed, param,
                      channel: str = "awgn", demapper: str = "soft", window: int = 1920,
-                     warmup: int = 128, mesh: Mesh = None, device="cuda"
-                     ) -> Tuple[int, int, int]:
-    """:func:`streaming_mc_accumulate` summed over its lanes with one
-    blocking read: (bit_errors, window_errors, info bits) ints, the counts
-    of ``lanes`` fresh streams' windows 0 .. ``windows - 1``."""
-    be, we, nb = streaming_mc_accumulate(code, lanes, windows, seed, param, channel,
-                                         demapper, window, warmup, mesh, device)
-    with annotate("mc_readback"):
-        sums = torch.stack([be.sum(dtype=torch.int64), we.sum(dtype=torch.int64)]).tolist()
-    return int(sums[0]), int(sums[1]), nb
+                     warmup: int = 128, mesh: Mesh = None, device="cuda") -> None:
+    """The launches of :func:`streaming_mc_accumulate`, enqueued into
+    ``tally``'s point 0 (read with ``tally.read(mesh)``): the bit and window
+    errors and the info bits of ``lanes`` fresh streams' windows 0 ..
+    ``windows - 1``."""
+    ranges = [(device, 0, windows)] if mesh is None else _time_ranges(windows, mesh)
+    for dev, w0, n in ranges:
+        be, we = _mc_launch(code, lanes, n, seed, param, channel, demapper, window, warmup,
+                            w0, dev)
+        tally.add(0, be, we, lanes * n * window)
 
 
 def dryrun_streaming(n_devices: int, devices=None) -> None:

@@ -9,7 +9,9 @@ produces one record per point, on one device or across a mesh
 Legs (as in the reference package's ``sim/sweep.py``), decided once a
 sweep by :func:`_leg`, by the first of these rules that holds (uncoded,
 stack/Fano, stream, fused, modular); every leg but the sequential one runs
-its points through one chunk loop (:func:`_chunked`):
+its points through one chunk loop (:func:`_chunked`), which enqueues all
+of a point's chunks, their counters summed on the device, and reads them
+once, after the last launch:
   * fused: every config :func:`fused_mc_eligible` accepts runs in the fused
     Monte-Carlo chain — the CUDA kernel on a CUDA device, its plain version
     on the CPU — with the reference's per-chunk seeds, so a CPU run gives
@@ -68,8 +70,8 @@ from convolutional_codes_tpu_torch.ops.channels import awgn_sigma
 from convolutional_codes_tpu_torch.ops.fano import FANO_TIMEOUT
 from convolutional_codes_tpu_torch.parallel.mesh import frames_axis_size, one_slot
 from convolutional_codes_tpu_torch.parallel.montecarlo import (
-    device_seed, frames_accumulate, fused_grid_accumulate, fused_mc_accumulate,
-    fused_mc_eligible, grid_accumulate_with_keys, per_device, sharded_accumulate)
+    Tally, device_seed, fused_mc_accumulate, fused_mc_eligible, my_slots, per_device,
+    step_counts)
 from convolutional_codes_tpu_torch.parallel.seq_grid import seq_mc_grid
 from convolutional_codes_tpu_torch.parallel.streaming import stream_mc_counts
 from convolutional_codes_tpu_torch.sim.chain import make_point_step, make_uncoded_step
@@ -164,10 +166,11 @@ class PointRecord:
     bits_per_s: float       # warm steady-state rate when measurable
     #: the first chunk of a point pays kernel build and warm-up; bits/wall
     #: of the remaining chunks are the steady-state numbers (0/0.0 when the
-    #: point ran as one chunk, and bits_per_s is then the total-wall rate).
-    #: A stack/Fano point's warm slice runs beside its cold one: its
-    #: warm_wall_s is the warm launch's time on the card (CUDA events on its
-    #: stream; the host clock on the CPU), not a host wall of its own
+    #: point ran as one chunk, and bits_per_s is then the total-wall rate):
+    #: the time from chunk 0's end to the last chunk's end on the card (CUDA
+    #: events; the host clock on the CPU).  A stack/Fano point's warm slice
+    #: runs beside its cold one: its warm_wall_s is the warm launch's time
+    #: on the card (CUDA events on its stream; the host clock on the CPU)
     warm_bits: int = 0
     warm_wall_s: float = 0.0
 
@@ -333,18 +336,21 @@ def _leg(spec: SweepSpec, code: Code, mesh, device: torch.device) -> _Leg:
         batches = functools.partial(_sequential_batches, spec, code, mesh, device)
     elif spec.stream_window > 0:
         frame_bits, ndev = spec.stream_window, 1
-        one = lambda seeds, n, params: stream_mc_counts(
-            code, frames, n, seeds[0], params[0], spec.channel, spec.demapper,
+        one = lambda tally, seeds, n, params: stream_mc_counts(
+            tally, code, frames, n, seeds[0], params[0], spec.channel, spec.demapper,
             spec.stream_window, spec.stream_warmup, frames_mesh, device)
         batches = _chunked(spec, mesh, frames * frame_bits, one)
     elif fused_mc_eligible(code, spec.channel, spec.decoder, spec.demapper):
         frames = max(1024, -(-frames // 1024) * 1024)
-        one = lambda seeds, n, params: fused_mc_accumulate(
-            code, n, seeds[0], params[0], frames, frames_mesh, channel=spec.channel,
-            demapper=spec.demapper, device=device)
-        grid = lambda seeds, n, params: fused_grid_accumulate(
-            code, n, seeds, params, frames, mesh, spec.channel, spec.demapper)
-        batches = _chunked(spec, mesh, frames * frame_bits, one, grid)
+
+        def fused(tally, slots, n, params):
+            for dev, seed, r in slots:   # launches only: distinct cards overlap
+                tally.add(r, *fused_mc_accumulate(code, n, seed, params[r], frames,
+                                                  channel=spec.channel,
+                                                  demapper=spec.demapper, device=dev))
+
+        batches = _chunked(spec, mesh, frames * frame_bits,
+                           *_on_slots(fused, mesh, frames_mesh, device))
     else:
         build = lambda dev: make_point_step(code, spec.channel, spec.decoder,
                                             spec.demapper, frames, device=dev)
@@ -352,69 +358,84 @@ def _leg(spec: SweepSpec, code: Code, mesh, device: torch.device) -> _Leg:
     return _Leg(name, decoder, to_param, frame_bits, frames * frame_bits * ndev, batches)
 
 
+def _on_slots(run, mesh, frames_mesh, device):
+    """``one`` and ``grid`` calls of :func:`_chunked` that enqueue ``run(tally,
+    slots, n, params)`` on this process's slots (device, seed, point index):
+    ``device`` alone, else every slot of the ``frames`` axis from the
+    point's :func:`device_seed`, and on the sweep×frames grid point ``r``'s
+    row of slots, so that the grid gives the serial leg's counters."""
+    F = frames_axis_size(frames_mesh)
+    if frames_mesh is None:
+        one = lambda tally, seeds, n, params: run(tally, [(device, seeds[0], 0)], n, params)
+    else:
+        one = lambda tally, seeds, n, params: run(tally, my_slots(
+            [[device_seed(seeds[0], d) for d in range(F)]], frames_mesh, ("frames",)), n, params)
+    grid = lambda tally, seeds, n, params: run(tally, my_slots(
+        [[device_seed(x, d) for d in range(F)] for x in seeds], mesh, ("sweep", "frames")),
+        n, params)
+    return one, grid
+
+
 def _chain(spec: SweepSpec, build, step_bits: int, mesh, frames_mesh, device):
     """:func:`_chunked` batches of a step chain: ``build(device)`` gives a
     step bound to one device, built here for each distinct slot device."""
-    if frames_mesh is not None:
-        step = per_device(build, frames_mesh)
-        one = lambda seeds, n, params: frames_accumulate(
-            step, n, seeds[0], params[0], frames_mesh)
-    else:
-        step = build(device)
-        one = lambda seeds, n, params: sharded_accumulate(
-            step, n, torch.Generator(device=device).manual_seed(seeds[0]), params[0])
-    grid = lambda seeds, n, params: grid_accumulate_with_keys(step, n, seeds, params, mesh)
-    return _chunked(spec, mesh, step_bits, one, grid)
+    step = per_device(build, frames_mesh if frames_mesh is not None else one_slot(device))
+    run = lambda tally, slots, n, params: step_counts(tally, step, n, slots, params)
+    return _chunked(spec, mesh, step_bits, *_on_slots(run, mesh, frames_mesh, device))
 
 
 def _chunked(spec: SweepSpec, mesh, step_bits: int, one, grid=None):
     """``batches`` of a leg that runs chunk by chunk, ``step_bits`` (a
-    step's info bits on one slot) sizing the chunks.  ``one([seed], n,
-    [param])`` runs ``n`` steps of a point and gives host ints (bit_errors,
-    frame_errors, bits); ``grid(seeds, n, params)`` runs R points side by
-    side on a sweep×frames mesh, R the ``sweep`` axis size, ``seeds`` [R,
-    frames], and gives int64 arrays [R].  There, points of equal step
-    counts run R at a time and the rest one at a time; elsewhere every
-    point runs alone, in index order."""
+    step's info bits on one slot) sizing the chunks.  ``one(tally, [seed],
+    n, [param])`` enqueues ``n`` steps of a point into the
+    ``montecarlo.Tally`` ``tally``, over the ``frames`` axis where the mesh
+    has one; ``grid(tally, seeds, n, params)`` enqueues R points side by
+    side on a sweep×frames mesh, R the ``sweep`` axis size.  There, points
+    of equal step counts run R at a time and the rest one at a time;
+    elsewhere every point runs alone, in index order."""
     chunk = max(1, CHUNK_BITS // max(1, step_bits))
-    ndev = frames_axis_size(mesh)
+    frames_mesh = mesh if mesh is not None and "frames" in mesh.axis_names else None
 
-    def run(call, batch):
+    def run(call, over, batch):
         """The R points of ``batch`` (one step count) chunk by chunk, chunk
-        ``ci`` from the points' ``_chunk_seed(spec.seed, i, ci)``.  A point
-        that fits one chunk runs a small cold chunk first, so that it still
-        records a warm rate (reference sweep.py:601): the bits and host time
-        after chunk 0, which pays the warm-up, amortised over the R points."""
+        ``ci`` from the points' ``_chunk_seed(spec.seed, i, ci)``, every
+        chunk enqueued before the one read of the points' counters (summed
+        over ``over``'s processes).  A point that fits one chunk runs a
+        small cold chunk first, so that it still records a warm rate
+        (reference sweep.py:601): the bits after chunk 0, which pays the
+        warm-up, over the time from chunk 0's end to the last chunk's end
+        (CUDA events on the card, the host clock on the CPU), amortised
+        over the R points."""
         R, nsteps = len(batch), batch[0][3]
-        tot = np.zeros((3, R), np.int64)
-        left, ci = nsteps, 0
+        tally, left, ci = Tally(R), nsteps, 0
         while left > 0:
             n = min(chunk, left)
             if ci == 0 and n == nsteps and n > 1:
                 n = max(1, n // 8)
-            seeds = [_chunk_seed(spec.seed, it[0], ci) for it in batch]
-            tot += np.array(call(seeds, n, [it[2] for it in batch]), np.int64).reshape(3, R)
-            if ci == 0:    # the counters are host ints: the device is done
-                cold, t_warm = tot[2].copy(), time.time()
+            call(tally, [_chunk_seed(spec.seed, it[0], ci) for it in batch], n,
+                 [it[2] for it in batch])
+            if ci == 0:
+                cold, warm_from = n, tally.marks()
             left, ci = left - n, ci + 1
-        ww = (time.time() - t_warm) / R if ci > 1 else 0.0
-        return [(*map(int, tot[:, r]), int(tot[2, r] - cold[r]), ww) for r in range(R)]
+        warm_to = tally.marks() if ci > 1 else None
+        be, fe, nb = tally.read(over)   # the counters are host ints: the device is done
+        ww = Tally.seconds(warm_from, warm_to) / R if ci > 1 else 0.0
+        return [(int(be[r]), int(fe[r]), int(nb[r]), int(nb[r]) - int(nb[r]) * cold // nsteps, ww)
+                for r in range(R)]
 
     def batches(pending):
         rest = pending
         if grid is not None and mesh is not None and {"sweep", "frames"} <= set(mesh.axis_names):
             Ds, by_steps, rest = mesh.shape["sweep"], {}, []
-            on_grid = lambda seeds, n, params: grid(
-                [[device_seed(x, d) for d in range(ndev)] for x in seeds], n, params)
             for item in pending:
                 by_steps.setdefault(item[3], []).append(item)
             for group in by_steps.values():
                 cut = len(group) - len(group) % Ds
                 for k in range(0, cut, Ds):
-                    yield group[k:k + Ds], functools.partial(run, on_grid)
+                    yield group[k:k + Ds], functools.partial(run, grid, mesh)
                 rest += group[cut:]
         for item in sorted(rest):
-            yield [item], functools.partial(run, one)
+            yield [item], functools.partial(run, one, frames_mesh)
 
     return batches
 

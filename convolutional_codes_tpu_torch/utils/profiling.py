@@ -38,7 +38,9 @@ once: one check, no allocation, no ``record_function``.
   walk, a slot's most: ``parallel/seq_grid.py``),
   ``stream_windows`` and ``stream_positions`` (a long-frame launch's
   lanes x windows, and the distinct stream positions it generates, from
-  its arguments: ``parallel/streaming.py``).  A
+  its arguments: ``parallel/streaming.py``), ``mc_reads`` (the blocking
+  reads of the chunked legs' counters, one a device a point:
+  ``parallel/montecarlo.Tally``).  A
   counter whose value lives on the device stays there until
   :func:`counters` reads it, so tracing adds no host sync to the traced
   work.

@@ -111,14 +111,16 @@ def test_no_session_records_nothing(monkeypatch, leg):
 def test_stream_counters_equal_the_plan():
     """A traced stream point of 9 windows (a cold launch of 1, then 8):
     ``stream_windows`` is lanes x windows and ``stream_positions`` each
-    launch's lanes x (windows x window + 2 x warmup), exactly."""
+    launch's lanes x (windows x window + 2 x warmup), exactly; both
+    launches' counters come back in one read (``mc_reads``)."""
     spec = _leg_spec("stream", trace_dir=None)
     spec.bits_per_point = 64 * 32 * 9
     with profile(activities=[ProfilerActivity.CPU]):
         (rec,) = run_sweep(spec, verbose=False, device="cpu")
     assert rec.frames == 64 * 9
     assert profiling.counters() == {"stream_windows": 64 * 9,
-                                    "stream_positions": 64 * (1 * 32 + 32) + 64 * (8 * 32 + 32)}
+                                    "stream_positions": 64 * (1 * 32 + 32) + 64 * (8 * 32 + 32),
+                                    "mc_reads": 1}
 
 
 @pytest.mark.parametrize("decoder", ["stack", "fano"])
