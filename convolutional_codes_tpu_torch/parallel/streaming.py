@@ -8,7 +8,8 @@ in blocks of at most ~200 bits.  :func:`long_frame_decode_stream` decodes
 frames of any length exactly — the same bits as the monolithic decode,
 :func:`monolithic_reference_decode` — through the streaming kernels of
 :mod:`ops.longframe_cuda` on a CUDA tensor, or their plain versions on a
-CPU tensor.
+CPU tensor.  While a profiler session records, its three stages are
+spans and each call adds to three counters (its docstring names them).
 
 :func:`streaming_viterbi_decode` partitions the symbol stream into time
 blocks across a ``seq`` mesh axis — the overlap-save scheme of parallel
@@ -71,15 +72,26 @@ def long_frame_decode_stream(code: Code, dists, hard: bool = False) -> torch.Ten
     starts from the first state of least final metric — the reference's
     global-min rule (``viterbi-decoder.c:71-90``, which does not force end
     state 0 despite tail termination).
+
+    While a profiler session records, the layout, kernel 4 and the
+    traceback are the spans ``decode_layout``, ``decode_acs`` and
+    ``decode_traceback``, and the call adds B, B x T and T to the counters
+    ``decode_frames``, ``decode_symbols`` and ``decode_chain_steps``.
     """
-    d_tmb = torch.as_tensor(dists).to(torch.float32).permute(1, 2, 0).contiguous()
-    S, B = code.num_states, d_tmb.shape[2]
-    init = torch.full((S, B), float(HARD_METRIC_SAT) if hard else BIG_METRIC,
-                      dtype=torch.float32, device=d_tmb.device)
-    init[0] = 0.0
-    fm, dec = stream_acs_cuda(code, d_tmb, init, hard)
-    bits, _ = stream_traceback_cuda(code, dec, first_argmin(fm, dim=0).to(torch.int32))
-    return bits.T.contiguous()
+    with annotate("decode_layout"):
+        d_tmb = torch.as_tensor(dists).to(torch.float32).permute(1, 2, 0).contiguous()
+        T, S, B = d_tmb.shape[0], code.num_states, d_tmb.shape[2]
+        init = torch.full((S, B), float(HARD_METRIC_SAT) if hard else BIG_METRIC,
+                          dtype=torch.float32, device=d_tmb.device)
+        init[0] = 0.0
+    count("decode_frames", B)
+    count("decode_symbols", B * T)
+    count("decode_chain_steps", T)
+    with annotate("decode_acs"):
+        fm, dec = stream_acs_cuda(code, d_tmb, init, hard)
+    with annotate("decode_traceback"):
+        bits, _ = stream_traceback_cuda(code, dec, first_argmin(fm, dim=0).to(torch.int32))
+        return bits.T.contiguous()
 
 
 def monolithic_reference_decode(code: Code, dists) -> torch.Tensor:

@@ -24,7 +24,11 @@ once: one check, no allocation, no ``record_function``.
   kernels 3, 6, 7 and 8),
   ``mc_readback`` (the counters' reduction launches and their blocking
   reads to the host), ``sweep_record`` (a point's record), ``build_load``
-  (a kernel library built or loaded).
+  (a kernel library built or loaded); in the decode of supplied frames
+  (``parallel/streaming.long_frame_decode_stream``) ``decode_layout`` (the
+  cast and transpose to ``[T, M, B]``, the start metrics), ``decode_acs``
+  (kernel 4's enqueue) and ``decode_traceback`` (the start-state scan,
+  kernel 5's launches and the output transpose).
 * :func:`count` and :func:`count_later` add to process-wide counters,
   read with :func:`counters` and cleared with :func:`reset_counters`:
   ``walk_iters`` (the walks' iterations, ``parallel/seq_grid.py``),
@@ -40,7 +44,9 @@ once: one check, no allocation, no ``record_function``.
   lanes x windows, and the distinct stream positions it generates, from
   its arguments: ``parallel/streaming.py``), ``mc_reads`` (the blocking
   reads of the chunked legs' counters, one a device a point:
-  ``parallel/montecarlo.Tally``).  A
+  ``parallel/montecarlo.Tally``), ``decode_frames``, ``decode_symbols``
+  and ``decode_chain_steps`` (a decode call's B, B x T and T, from its
+  arguments: ``parallel/streaming.long_frame_decode_stream``).  A
   counter whose value lives on the device stays there until
   :func:`counters` reads it, so tracing adds no host sync to the traced
   work.
