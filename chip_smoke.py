@@ -153,11 +153,12 @@ SECTOR_BYTES = 32                # the least a read from device memory moves
 #: the times of kernels before their last redesign, at phase 5's shapes
 #: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
 #: kernels 2, 5 and 6, and kernels 1, 3 (ms per MC step; the headline in
-#: info bits/s) and 4
+#: info bits/s) and 4 (at B = 1, 128 and 1,024: the radix-2 step at 64
+#: states before the two-step body, the mean of two ``--kernel-times`` runs)
 BEFORE_MS = {"traceback": 0.0624, "stream_traceback": {128: 5.8450, 1024: 1.5035},
              "mc_longframe": (15.955, 35.200), "acs_forward": 0.1061,
              "mc_chain": 0.5826, "headline": 7.198802e10,
-             "stream_acs": {128: 3.6587, 1024: 1.5473}}
+             "stream_acs": {1: 3.1166, 128: 3.1226, 1024: 1.3885}}
 #: kernels 7 and 9 before their redesign (PR 7's chip run 12, NVIDIA H100
 #: 80GB HBM3, 700.00 W): kernel 7's info bits/s at phase 5's rows, its ms
 #: at 256 lanes x 1 frame, kernel 9's ms at B = 131,072
@@ -1005,6 +1006,27 @@ def check_longframe_kernels(torch, dev, stats):
                                             float((bits - bits_r).abs().max()))
         print(f"stream kernels vs plain {name} (S={S}, B={B}): soft T=8192 and 4097, hard "
               "T=7777 bit-exact, two-segment traceback through the carry equal (tolerance 0)")
+    # kernel 4's two-step body (S = 64, M = 2-16): at M = 4 a frame of one
+    # chunk of 37 steps (18 pairs and a radix-2 step), at M = 2, 8 and 16
+    # last chunks of an odd number of steps, soft and tie-heavy hard
+    for code, T in ((get_code("nasa-k7"), 37), (k7_code(1), 1001), (k7_code(3), 1001),
+                    (k7_code(4), 1001)):
+        for hard in (False, True):
+            S, M = code.num_states, code.points_per_symbol
+            if hard:
+                d = torch.randint(0, code.symlen_out + 1, (T, M, B), generator=g,
+                                  device=dev).to(torch.float32)
+                init = torch.full((S, B), float(HARD_METRIC_SAT), device=dev)
+                init[0] = 0.0
+            else:
+                d = torch.rand((T, M, B), generator=g, device=dev) * 8.0
+                init = torch.rand((S, B), generator=g, device=dev) * 8.0
+            got = lc.stream_acs_cuda(code, d, init, hard)
+            want = lc.stream_acs_ref(code, d, init, hard)
+            require(all(torch.equal(a, w) for a, w in zip(got, want)),
+                    f"stream ACS kernel vs plain {code.name} (M={M}) T={T} hard={hard}")
+    print(f"stream ACS two-step body vs plain (S=64, B={B}): M=4 T=37, M=2, 8, 16 T=1001, "
+          "soft and hard, bit-exact (tolerance 0)")
 
     lanes, W, Wn, nsteps = 1024, 128, 256, 3
     for ck, channel, point, dem in LONGFRAME_CASES:
@@ -1086,6 +1108,16 @@ def check_traceback_designs(torch, dev, stats):
         require(torch.equal(torch.cat([lo, hi]), bits) and torch.equal(carry0, carry)
                 and torch.equal(bits, lc.stream_traceback_ref(code, dec, start)[0]),
                 f"two-segment traceback on the segment design {name}")
+
+
+def k7_code(symlen: int):
+    """A K = 7 code of 2^symlen points (rate 1/symlen: (171), (133, 171,
+    165), (117, 127, 155, 171) octal), for kernel 4's two-step body at M =
+    2, 8 and 16 beside nasa-k7's 4."""
+    from convolutional_codes_tpu_torch.models.codebook import Code
+    polys = {1: (0o171,), 3: (0o133, 0o171, 0o165), 4: (0o117, 0o127, 0o155, 0o171)}[symlen]
+    return Code(name=f"k7-r1{symlen}", symlen_out=symlen, constraint_length=7,
+                block_length=40, polynomials=polys)
 
 
 def k8_code():
@@ -2482,7 +2514,8 @@ def measure_longframe(torch, dev, card, clock, stats, sass):
             require(torch.equal(one[0], fm[:, :1]) and torch.equal(one[1], dec[:, :, :1]),
                     "stream ACS at B = 1 differs from the same frame at B = 128")
             cycles = ms1 * 1e-3 * clock / T
-            print(f"stream_acs [{card}]: nasa-k7 B=1 T={T}: {ms1:.4f} ms (B={B}: "
+            print(f"stream_acs [{card}]: nasa-k7 B=1 T={T}: {ms1:.4f} ms (before: "
+                  f"{BEFORE_MS['stream_acs'][1]:.4f} ms; B={B}: "
                   f"{k['stream_acs'] / ms1:.3f} x this), {cycles:.1f} cycles a step at the "
                   f"maximum clock for {sass['stream_acs_instr']:.1f} SASS instructions "
                   f"({cycles / sass['stream_acs_instr']:.2f} cycles an instruction); equal "
@@ -2562,9 +2595,10 @@ def measure_traceback_crossover(torch, dev, card):
 
 
 #: (code, B, T, hard) of kernel 1 (code 0) and kernel 4 in ``--kernel-times``:
-#: kernel 1's shape, both decode shapes soft and hard, and B = 128 frames
-#: at every S from 4 to 256
-KERNEL4_TIMES = ((0, 262144, 42, False), ("nasa-k7", 128, 65536, False),
+#: kernel 1's shape, one frame alone (B = 1: one warp's chain), both decode
+#: shapes soft and hard, and B = 128 frames at every S from 4 to 256
+KERNEL4_TIMES = ((0, 262144, 42, False), ("nasa-k7", 1, 65536, False),
+                 ("nasa-k7", 128, 65536, False),
                  ("nasa-k7", 1024, 16384, False), ("nasa-k7", 128, 65536, True),
                  ("nasa-k7", 1024, 16384, True), ("k3-75", 128, 16384, False),
                  ("k4-r12", 128, 16384, False), ("k5-r12", 128, 16384, False),

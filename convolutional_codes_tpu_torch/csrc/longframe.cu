@@ -30,15 +30,22 @@
 // decision words of a chunk leave through shared memory.  The serial
 // chain of T steps stays; each step is a few dozen instructions of one
 // warp instead of 8 S of one thread.  At B = 128 one warp a frame is all an
-// SM runs, and a lone warp issues about one instruction every three to
-// four cycles, so what bounds B = 128 is the step's chain of instructions
-// in one warp (the time of one frame alone), not the card.  Groups of 2^R
-// states a thread, R steps between exchanges through shared memory, issue
-// more instructions per warp and step and were slower at every shape tried
-// (R = 2 and 3, S = 4 .. 256; PERF.md); from S = 8 to 64 the step is
-// pipelined instead (acs_pipelined).  M = 32-256 has one instance per S
-// with M at run time, which reads each transition's distance where it
-// lies instead of staging all M (AcsChunk<S, 0>).
+// SM runs, so what bounds B = 128 is the latency of one step's dependent
+// chain in one warp (the time of one frame alone), not the card.  From S =
+// 8 to 64 the step is pipelined (acs_pipelined).  At S = 64 with M = 2-16
+// staged (acs_two_step) a body advances two steps per exchange: lane l =
+// 16h + k takes the metrics of ancestors 4k .. 4k+3 in four shuffles,
+// computes intermediate states 2k + 32h and 2k + 32h + 1 from them and
+// final states l and l + 32 from those, so a step pair's chain pays one
+// round of shuffles where the radix-2 step paid two; an odd last step of
+// a frame takes one radix-2 step (stream_acs_pairs).  It keeps the 32
+// threads and two states a thread of the radix-2 step and exchanges by
+// shuffles with no barrier.  Groups of 2^R states a thread, R steps
+// between exchanges through shared memory with a barrier, issued more
+// instructions per warp and step and were slower at every shape tried (R
+// = 2 and 3, S = 4 .. 256; PERF.md).  M = 32-256 has one
+// instance per S with M at run time, which reads each transition's
+// distance where it lies instead of staging all M (AcsChunk<S, 0>).
 //
 // stream_traceback.  A traceback is T dependent steps per frame, from
 // given start states or from the first state of least final metric (a
@@ -145,6 +152,147 @@ __host__ __device__ constexpr bool acs_hard_compiled() {
   return S >= 64;
 }
 
+// S = 64 with M = 2-16 staged in shared memory: two trellis steps per
+// exchange of path metrics (stream_acs_pairs).
+template <int S, int M>
+__host__ __device__ constexpr bool acs_two_step() {
+  return S == 64 && M > 0;
+}
+
+template <bool HARD>
+__device__ __forceinline__ float acs_select(float m0, float m1, float x0, float x1, bool& d) {
+  float c0 = m0 + x0, c1 = m1 + x1;
+  if (HARD) {
+    c0 = fminf(c0, CC_HARD_SAT);
+    c1 = fminf(c1, CC_HARD_SAT);
+  }
+  d = c1 < c0;   // strict: ties keep branch 0
+  return d ? c1 : c0;
+}
+
+// The lanes whose V holds their high state (bit 1 of the lane set).
+constexpr unsigned kPairSwap = 0xCCCCCCCCu;
+
+// The low 16 bits of x to the even bits of a word.
+__device__ __forceinline__ unsigned spread16(unsigned x) {
+  x &= 0xFFFFu;
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// Decision word w of a row from the row's two raw ballots: (X, Y) of a
+// pair's first step, interleaved (word h, bit 2k: state 2k + 32h, lane 16h
+// + k's X; bit 2k+1: state 2k + 32h + 1, its Y), or (V, W) of a pair's
+// second step or of a radix-2 step (bit l of word 0: state l, in V unless
+// bit 1 of l is set).
+__device__ __forceinline__ unsigned pair_word(unsigned a, unsigned b, int w, bool first) {
+  if (first) return spread16(a >> (16 * w)) | (spread16(b >> (16 * w)) << 1);
+  return w ? (b & ~kPairSwap) | (a & kPairSwap) : (a & ~kPairSwap) | (b & kPairSwap);
+}
+
+// The two-step body: one frame a warp (block b), lane l = 16h + k.  Between
+// bodies lane l holds the metrics of states l and l + 32: V, the one that
+// rounds 0-1 of the exchange read (l + 32 where bit 1 of l is set, else l),
+// and W the other.  A pair of steps t, t+1:
+//   exchange  round r brings ancestor r (k < 8; from lane 4k + r) or (r +
+//             2) & 3 (k >= 8; from lane 4(k-8) + ((r+2) & 3)), rounds 0-1
+//             from V, 2-3 from W: every lane sends one value a round, and
+//             the lanes of a round read either their sources' low states
+//             or their high ones, so no source is asked for two;
+//   step t    intermediate states X = 2k + 32h (ancestors 4k, 4k+1) and Y
+//             = X + 1 (4k+2, 4k+3), each with its two candidates in the
+//             reference's order: lanes k >= 8 select rounds 2-3 for X and
+//             0-1 for Y, so each compare waits for all four shuffles and
+//             the four issue back to back;
+//   step t+1  V and W from X (branch 0) and Y, the same operations.
+// The four ballots of a pair go to shared memory raw and become decision
+// words in the copy to dec (pair_word), off the chain.  An odd last step
+// (T odd: every chunk but the last holds 256/M steps, an even number) is
+// one radix-2 step from the same V/W layout: lane j takes m[2j] and
+// m[2j+1] in two shuffles, each lane sending first its low state if even,
+// its high one if odd (V or W by bit 0 ^ bit 1 of the lane), as the
+// pipelined step does.
+template <int M, bool HARD>
+__device__ __forceinline__ void stream_acs_pairs(float (*bm_s)[AcsChunk<64, M>::ELEMS],
+                                                 unsigned* dec_s,
+                                                 const float* __restrict__ dists,
+                                                 const float* __restrict__ init,
+                                                 float* __restrict__ fm, int* __restrict__ dec,
+                                                 int T, int B, const TrellisTables& tt) {
+  using C = AcsChunk<64, M>;
+  constexpr int CH = C::CH;
+  const int l = threadIdx.x, b = blockIdx.x, k = l & 15;
+  const size_t Bs = (size_t)B;
+  const bool hi = k >= 8;
+  const int sv = (kPairSwap >> l) & 1u ? l + 32 : l, sw = sv ^ 32;
+  const int sx = 2 * k + 32 * (l >> 4), sy = sx + 1;
+  const int q = 4 * (k & 7) + (hi ? 2 : 0);   // the source of round 0
+  const int q0 = q, q1 = q + 1, q2 = q ^ 2, q3 = (q ^ 2) + 1;
+  const int ex0 = tt.esym0[sx], ex1 = tt.esym1[sx], ey0 = tt.esym0[sy], ey1 = tt.esym1[sy];
+  const int ev0 = tt.esym0[sv], ev1 = tt.esym1[sv], ew0 = tt.esym0[sw], ew1 = tt.esym1[sw];
+  // the radix-2 step's sources and send order
+  const bool lo2 = l < 16, odd2 = ((l ^ (l >> 1)) & 1) != 0;
+  const int src1 = lo2 ? 2 * l : (2 * l + 1) & 31, src2 = lo2 ? 2 * l + 1 : (2 * l) & 31;
+  float V = init[(size_t)sv * Bs + b], W = init[(size_t)sw * Bs + b];
+
+  const int nchunks = (T + CH - 1) / CH;
+  float pre[C::PER];
+  load_chunk<64, M>(pre, dists, 0, T, b, B);
+  store_chunk<64, M>(bm_s[0], pre);
+  __syncthreads();
+  for (int c = 0; c < nchunks; ++c) {
+    const int t0 = c * CH;
+    if (c + 1 < nchunks) load_chunk<64, M>(pre, dists, t0 + CH, T, b, B);
+    const float* bmc = bm_s[c & 1];
+    const int steps = min(CH, T - t0), pairs = steps >> 1;
+    // a pair's eight distances; the next pair's load while it runs
+    float px0 = bmc[ex0], px1 = bmc[ex1], py0 = bmc[ey0], py1 = bmc[ey1];
+    float pv0 = bmc[M + ev0], pv1 = bmc[M + ev1], pw0 = bmc[M + ew0], pw1 = bmc[M + ew1];
+#pragma unroll 4
+    for (int p = 0; p < pairs; ++p) {
+      const float r0 = __shfl_sync(kFull, V, q0), r1 = __shfl_sync(kFull, V, q1);
+      const float r2 = __shfl_sync(kFull, W, q2), r3 = __shfl_sync(kFull, W, q3);
+      const float bx0 = px0, bx1 = px1, by0 = py0, by1 = py1;
+      const float bv0 = pv0, bv1 = pv1, bw0 = pw0, bw1 = pw1;
+      const float* next = bmc + min(2 * p + 2, CH - 2) * M;   // the last pair's: unused
+      px0 = next[ex0], px1 = next[ex1], py0 = next[ey0], py1 = next[ey1];
+      pv0 = next[M + ev0], pv1 = next[M + ev1], pw0 = next[M + ew0], pw1 = next[M + ew1];
+      bool dx, dy, dv, dw;
+      const float x = acs_select<HARD>(hi ? r2 : r0, hi ? r3 : r1, bx0, bx1, dx);
+      const float y = acs_select<HARD>(hi ? r0 : r2, hi ? r1 : r3, by0, by1, dy);
+      V = acs_select<HARD>(x, y, bv0, bv1, dv);
+      W = acs_select<HARD>(x, y, bw0, bw1, dw);
+      *reinterpret_cast<uint4*>(dec_s + 4 * p) =
+          make_uint4(__ballot_sync(kFull, dx), __ballot_sync(kFull, dy),
+                     __ballot_sync(kFull, dv), __ballot_sync(kFull, dw));
+    }
+    if (steps & 1) {
+      const float* row = bmc + (steps - 1) * M;
+      const float r1 = __shfl_sync(kFull, odd2 ? W : V, src1);
+      const float r2 = __shfl_sync(kFull, odd2 ? V : W, src2);
+      const float m0 = lo2 ? r1 : r2, m1 = lo2 ? r2 : r1;
+      bool dv, dw;
+      V = acs_select<HARD>(m0, m1, row[ev0], row[ev1], dv);
+      W = acs_select<HARD>(m0, m1, row[ew0], row[ew1], dw);
+      *reinterpret_cast<uint2*>(dec_s + 2 * (steps - 1)) =
+          make_uint2(__ballot_sync(kFull, dv), __ballot_sync(kFull, dw));
+    }
+    __syncthreads();
+    for (int i = l; i < 2 * steps; i += 32) {
+      const int tl = i >> 1;
+      const bool first = tl < 2 * pairs && !(tl & 1);
+      dec[((size_t)(t0 + tl) * 2 + (i & 1)) * Bs + b] =
+          (int)pair_word(dec_s[2 * tl], dec_s[2 * tl + 1], i & 1, first);
+    }
+    if (c + 1 < nchunks) store_chunk<64, M>(bm_s[(c + 1) & 1], pre);
+    __syncthreads();
+  }
+  fm[(size_t)sv * Bs + b] = V;
+  fm[(size_t)sw * Bs + b] = W;
+}
+
 template <int S, int M, bool HARD>
 __global__ void __launch_bounds__(AcsLayout<S>::THREADS)
 stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ init,
@@ -156,8 +304,12 @@ stream_acs_kernel(const float* __restrict__ dists, const float* __restrict__ ini
   constexpr bool PIPE = acs_pipelined<S>();
   const bool hard = acs_hard_compiled<S>() ? HARD : hard_flag != 0;
   __shared__ float bm_s[2][C::ELEMS];               // [chunk step][e][frame]
-  __shared__ __align__(8) unsigned dec_s[CH * NW * FPB];   // [chunk step][word][frame]
+  __shared__ __align__(16) unsigned dec_s[CH * NW * FPB];   // [chunk step][word][frame]
   __shared__ float2 m_s[2][H >= 64 ? H : 1];        // metric exchange, S >= 128
+  if constexpr (acs_two_step<S, M>()) {
+    stream_acs_pairs<M, HARD>(bm_s, dec_s, dists, init, fm, dec, T, B, tt);
+    return;
+  }
 
   const int tid = threadIdx.x;
   const int f = tid / H;               // frame within the block

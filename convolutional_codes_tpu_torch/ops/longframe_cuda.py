@@ -32,6 +32,14 @@ from convolutional_codes_tpu_torch.ops.viterbi_cuda import (
     TracebackPlan, _acs, _runs_plain, _traceback, acs_forward_ref)
 
 
+def pair_steps(code: Code, T: int) -> int:
+    """The exchanges kernel 4 makes over T steps in its two-step body, as
+    its dispatch decides (``csrc/longframe.cu`` ``acs_two_step``: S = 64
+    with M = 2-16 staged, two trellis steps an exchange): T // 2 there, 0
+    for every other code."""
+    return T // 2 if code.num_states == 64 and code.points_per_symbol <= 16 else 0
+
+
 #: Plain version of :func:`stream_acs_cuda`: the plain ACS scan, as for
 #: kernel 1 (float32 metrics).
 stream_acs_ref = acs_forward_ref

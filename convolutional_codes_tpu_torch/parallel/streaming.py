@@ -56,7 +56,7 @@ from convolutional_codes_tpu_torch.ops.fused_longframe import mc_longframe_viter
 from convolutional_codes_tpu_torch.parallel.mesh import Mesh, make_mesh
 from convolutional_codes_tpu_torch.parallel.montecarlo import Tally
 from convolutional_codes_tpu_torch.ops.longframe_cuda import (
-    stream_acs_cuda, stream_traceback_cuda)
+    pair_steps, stream_acs_cuda, stream_traceback_cuda)
 from convolutional_codes_tpu_torch.ops.viterbi import (
     BIG_METRIC, HARD_METRIC_SAT, acs_forward, initial_metrics, traceback_from)
 from convolutional_codes_tpu_torch.utils.bitops import first_argmin
@@ -76,7 +76,9 @@ def long_frame_decode_stream(code: Code, dists, hard: bool = False) -> torch.Ten
     While a profiler session records, the layout, kernel 4 and the
     traceback are the spans ``decode_layout``, ``decode_acs`` and
     ``decode_traceback``, and the call adds B, B x T and T to the counters
-    ``decode_frames``, ``decode_symbols`` and ``decode_chain_steps``.
+    ``decode_frames``, ``decode_symbols`` and ``decode_chain_steps``, and
+    kernel 4's two-step exchanges (``longframe_cuda.pair_steps``: T // 2
+    at S = 64, else 0) to ``decode_pair_steps``.
     """
     with annotate("decode_layout"):
         d_tmb = torch.as_tensor(dists).to(torch.float32).permute(1, 2, 0).contiguous()
@@ -87,6 +89,7 @@ def long_frame_decode_stream(code: Code, dists, hard: bool = False) -> torch.Ten
     count("decode_frames", B)
     count("decode_symbols", B * T)
     count("decode_chain_steps", T)
+    count("decode_pair_steps", pair_steps(code, T))
     with annotate("decode_acs"):
         fm, dec = stream_acs_cuda(code, d_tmb, init, hard)
     with annotate("decode_traceback"):

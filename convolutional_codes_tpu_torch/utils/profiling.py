@@ -44,9 +44,10 @@ once: one check, no allocation, no ``record_function``.
   lanes x windows, and the distinct stream positions it generates, from
   its arguments: ``parallel/streaming.py``), ``mc_reads`` (the blocking
   reads of the chunked legs' counters, one a device a point:
-  ``parallel/montecarlo.Tally``), ``decode_frames``, ``decode_symbols``
-  and ``decode_chain_steps`` (a decode call's B, B x T and T, from its
-  arguments: ``parallel/streaming.long_frame_decode_stream``).  A
+  ``parallel/montecarlo.Tally``), ``decode_frames``, ``decode_symbols``,
+  ``decode_chain_steps`` and ``decode_pair_steps`` (a decode call's B, B x
+  T, T and kernel 4's two-step exchanges, from its arguments:
+  ``parallel/streaming.long_frame_decode_stream``).  A
   counter whose value lives on the device stays there until
   :func:`counters` reads it, so tracing adds no host sync to the traced
   work.

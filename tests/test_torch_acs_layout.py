@@ -7,10 +7,13 @@ versions and the JAX package's interpret-mode kernels:
   thread a butterfly j of a frame's H = S/2, new states j and j + H; the
   decisions by two ballots a warp (64/S frames a warp below S = 64, their
   bits cut out of the warp's ballot; S/64 warps a frame above, a word each);
-  the new metrics to their readers by two shuffles from S = 8 to 64 (each
+  the new metrics to their readers by two shuffles from S = 8 to 32 (each
   lane sends first its first, then its second new state if even, the other
   order if odd; ``shuffle_sources``), by four below, through shared memory
-  from S = 128.
+  from S = 128.  At S = 64 with M = 2-16 the two-step body
+  (``stream_acs_pairs``): two trellis steps per exchange of four shuffles
+  (``pair_lanes``), raw ballots turned into words on the way out
+  (``pair_words``), and one radix-2 step where a chunk's steps are odd.
   Equal, bit for bit, to ``stream_acs_ref`` and to ``stream_acs_pallas``;
 * TPU kernel 3, ``csrc/fused_chain.cu`` ``mc_chain_kernel``: the expected
   symbol from the packed 64-bit register table (``pack_esym_table``), the BSC
@@ -74,14 +77,124 @@ def shuffle_sources(H):
     return src1, src2, lo, odd
 
 
+#: lanes whose V holds their high state l + 32 (bit 1 of the lane set)
+PAIR_SWAP = 0xCCCCCCCC
+
+
+def pair_lanes():
+    """The two-step body's lane map (S = 64, M = 2-16): lane l = 16h + k
+    holds the metrics of states sv = l or l + 32 (l + 32 where bit 1 of l is
+    set) in V and sw = sv ^ 32 in W, and takes ancestors 4k .. 4k+3 in four
+    shuffle rounds, rounds 0-1 from V and 2-3 from W.  Returns (sv, sw,
+    hi, order, src): ``order[r]`` the ancestor (0-3) lane l receives in
+    round r, ``src[r]`` its source lane."""
+    lane = torch.arange(32)
+    k = lane & 15
+    hi = k >= 8
+    sv = torch.where((lane & 2) != 0, lane + 32, lane)
+    order = [torch.where(hi, (r + 2) & 3, torch.full_like(lane, r)) for r in range(4)]
+    src = [4 * (k & 7) + order[r] for r in range(4)]
+    return sv, sv ^ 32, hi, order, src
+
+
+def _spread16(x):
+    """The low 16 bits of x to the even bits of a word."""
+    x = x & 0xFFFF
+    for shift, mask in ((8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
+        x = (x | (x << shift)) & mask
+    return x
+
+
+def pair_words(a, b, intermediate):
+    """The copy-out's words 0 and 1 of a row from its two raw ballots:
+    (X, Y) of the intermediate step, interleaved (word h, bit 2k: state 2k +
+    32h, lane 16h + k's X; bit 2k+1: state 2k + 32h + 1, its Y), or (V, W)
+    of a final step (word 0, bit l: V of lane l unless bit 1 of l is set,
+    then W)."""
+    if intermediate:
+        return [_spread16(a >> 16 * h) | (_spread16(b >> 16 * h) << 1) for h in (0, 1)]
+    keep = 0xFFFFFFFF ^ PAIR_SWAP
+    return [(a & keep) | (b & PAIR_SWAP), (b & keep) | (a & PAIR_SWAP)]
+
+
+def _ballot(pred):
+    """[32, B] bools -> [B] int64 words, lane l at bit l."""
+    return (pred.to(torch.int64) << torch.arange(32)[:, None]).sum(0)
+
+
+def stream_acs_pairs(code, d, init, hard, chunk):
+    """Model of ``stream_acs_kernel`` at S = 64 and M = 2-16: chunks of
+    ``chunk`` steps; in each, two trellis steps per exchange (pair_lanes),
+    then, where the chunk's steps are odd, one radix-2 step from the same
+    V/W layout; raw ballots staged a row and turned into words by
+    pair_words.  Lanes 8-15 of a half take X's ancestors in rounds 2-3 and
+    Y's in rounds 0-1, and select them so.  Returns (fm [64, B], dec [T, 2,
+    B] int64)."""
+    T, M, B = d.shape
+    sv, sw, hi, order, src = pair_lanes()
+    tables = code_tables(code)
+    e0, e1 = tables.esym_prev[:, 0], tables.esym_prev[:, 1]
+    lane = torch.arange(32)
+    sx = 2 * (lane & 15) + 32 * (lane >> 4)           # X; Y = X + 1
+    hi_ = hi[:, None]
+
+    def acs(m0, m1, row, s):
+        c0, c1 = m0 + row[e0[s]], m1 + row[e1[s]]
+        if hard:
+            c0, c1 = c0.clamp_max(HARD_METRIC_SAT), c1.clamp_max(HARD_METRIC_SAT)
+        dd = c1 < c0
+        return torch.where(dd, c1, c0), dd
+
+    V, W = init[sv], init[sw]                          # [32, B]
+    dec = torch.zeros((T, 2, B), dtype=torch.int64)
+    for t0 in range(0, T, chunk):
+        steps = min(chunk, T - t0)
+        for p in range(steps // 2):
+            t = t0 + 2 * p
+            R = [(V if r < 2 else W)[src[r]] for r in range(4)]
+            X, dX = acs(torch.where(hi_, R[2], R[0]), torch.where(hi_, R[3], R[1]), d[t], sx)
+            Y, dY = acs(torch.where(hi_, R[0], R[2]), torch.where(hi_, R[1], R[3]), d[t],
+                        sx + 1)
+            V, dV = acs(X, Y, d[t + 1], sv)
+            W, dW = acs(X, Y, d[t + 1], sw)
+            for row, (a, b), inter in ((t, (dX, dY), True), (t + 1, (dV, dW), False)):
+                dec[row] = torch.stack(pair_words(_ballot(a), _ballot(b), inter))
+        if steps & 1:
+            # radix-2: lane j takes m[2j], m[2j+1] in two shuffles, each
+            # lane sending V or W by the parity of bit 0 ^ bit 1
+            t, j = t0 + steps - 1, lane
+            lo2 = (2 * j < 32)[:, None]
+            src1 = torch.where(lo2[:, 0], 2 * j, (2 * j + 1) & 31)
+            src2 = torch.where(lo2[:, 0], 2 * j + 1, (2 * j) & 31)
+            swap = (((lane ^ (lane >> 1)) & 1) != 0)[:, None]
+            r1 = torch.where(swap, W, V)[src1]
+            r2 = torch.where(swap, V, W)[src2]
+            m0, m1 = torch.where(lo2, r1, r2), torch.where(lo2, r2, r1)
+            V, dV = acs(m0, m1, d[t], sv)
+            W, dW = acs(m0, m1, d[t], sw)
+            dec[t] = torch.stack(pair_words(_ballot(dV), _ballot(dW), False))
+    fm = torch.zeros((64, B))
+    fm[sv], fm[sw] = V, W
+    return fm, dec
+
+
+def pair_chunk(M):
+    """``AcsChunk<64, M>::CH``: steps staged a chunk."""
+    return max(1, 8 * 32 // M)
+
+
 def stream_acs_lanes(code, d_tmb, init, hard):
-    """Model of ``stream_acs_kernel``: per thread j of each frame the
+    """Model of ``stream_acs_kernel``: at S = 64 and M = 2-16 the two-step
+    body (``stream_acs_pairs``); otherwise per thread j of each frame the
     metrics m0 = m[2j], m1 = m[2j+1], one butterfly a step, the ballots of
     the warp cut into the ``[T, nwords, B]`` words, the exchange by two
     shuffles (S = 8 to 64), four (S < 8) or shared memory.  Returns (fm [S,
     B], dec)."""
     S = code.num_states
     H = S // 2
+    if S == 64 and code.points_per_symbol <= 16:
+        fm, dec = stream_acs_pairs(code, d_tmb, init, hard, pair_chunk(code.points_per_symbol))
+        return fm, torch.where(dec >= 2 ** 31, dec - 2 ** 32, dec).to(torch.int32)
     FPB, NW = max(1, 32 // H), (S + 31) // 32
     T, M, B = d_tmb.shape
     Bp = -(-B // FPB) * FPB                          # whole blocks, padded frames zero
@@ -194,6 +307,80 @@ def test_shuffle_sources_deliver_predecessors(S):
         got2 = holds(s2, bool(odd[s2]))
         want = (2 * j % S, (2 * j + 1) % S)
         assert (got1, got2) == (want if lo[j] else want[::-1])
+
+
+#: K = 7 codes of M = 2, 8 and 16 points (rates 1/1, 1/3, 1/4), beside
+#: nasa-k7's 4: one instance of the two-step body each
+K7_BY_M = {2: Code(name="k7-r11", symlen_out=1, constraint_length=7, block_length=40,
+                   polynomials=(0o171,)),
+           4: get_code("nasa-k7"),
+           8: Code(name="k7-r13", symlen_out=3, constraint_length=7, block_length=40,
+                   polynomials=(0o133, 0o171, 0o165)),
+           16: Code(name="k7-r14", symlen_out=4, constraint_length=7, block_length=40,
+                    polynomials=(0o117, 0o127, 0o155, 0o171))}
+
+
+@pytest.mark.parametrize("M", [2, 4, 8, 16])
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("odd", [False, True])
+def test_pair_lanes_equal_plain(M, hard, odd):
+    """The two-step body against the plain ACS over two whole chunks and a
+    last one of 3 or 4 steps (one radix-2 step where the steps are odd):
+    soft from random start metrics, tie-heavy hard from the pinned start."""
+    code = K7_BY_M[M]
+    assert (code.num_states, code.points_per_symbol) == (64, M)
+    T = 2 * pair_chunk(M) + 3 + (not odd)
+    d, init = _stream_inputs(code, T, 3, hard, 7 * M + hard)
+    fm, dec = stream_acs_lanes(code, torch.as_tensor(d), torch.as_tensor(init), hard)
+    fm_r, dec_r = lc.stream_acs_ref(code, torch.as_tensor(d), torch.as_tensor(init), hard)
+    assert torch.equal(fm, fm_r)
+    assert torch.equal(dec, dec_r)
+
+
+def test_pair_rounds_deliver_ancestors():
+    """Each round brings lane 16h + k one of ancestors 4k .. 4k+3 (all four
+    over the rounds, lanes 8-15 of a half in the order 2, 3, 0, 1), from
+    the lane and register (V in rounds 0-1, W in 2-3) that hold it, and no
+    source lane is asked for two states in one round."""
+    sv, sw, hi, order, src = pair_lanes()
+    for r in range(4):
+        held = (sv if r < 2 else sw)[src[r]]          # what each source sends
+        for lane in range(32):
+            k = lane & 15
+            assert int(held[lane]) == 4 * k + int(order[r][lane])
+        asked = {}
+        for lane in range(32):
+            asked.setdefault(int(src[r][lane]), set()).add(int(held[lane]))
+        assert all(len(states) == 1 for states in asked.values())
+    for lane in range(32):
+        got = [int(order[r][lane]) for r in range(4)]
+        assert got == ([2, 3, 0, 1] if lane & 8 else [0, 1, 2, 3])
+    assert torch.equal(hi, (torch.arange(32) & 8) != 0)
+    assert sum(1 << i for i in range(32) if sv[i] >= 32) == PAIR_SWAP
+    assert sorted(torch.cat([sv, sw]).tolist()) == list(range(64))
+
+
+def test_pair_words_interleave_intermediate_ballots():
+    """An intermediate row's words: bit 2k of word h is state 2k + 32h, lane
+    16h + k's X, bit 2k+1 state 2k + 32h + 1, its Y; a final row's bit l of
+    word 0 is state l, in V unless bit 1 of l is set."""
+    rng = np.random.default_rng(3)
+    sv = pair_lanes()[0]
+    for _ in range(8):
+        a, b = (int(x) for x in rng.integers(0, 2 ** 32, 2))
+        dA = [(a >> l) & 1 for l in range(32)]
+        dB = [(b >> l) & 1 for l in range(32)]
+        state = {}
+        for lane in range(32):
+            k, h = lane & 15, lane >> 4
+            state[2 * k + 32 * h], state[2 * k + 32 * h + 1] = dA[lane], dB[lane]
+        want = [sum(state[32 * w + i] << i for i in range(32)) for w in (0, 1)]
+        assert pair_words(a, b, True) == want
+        state = {}
+        for lane in range(32):
+            state[int(sv[lane])], state[int(sv[lane]) ^ 32] = dA[lane], dB[lane]
+        want = [sum(state[32 * w + i] << i for i in range(32)) for w in (0, 1)]
+        assert pair_words(a, b, False) == want
 
 
 # ---------------------------------------------------------------- kernel 3

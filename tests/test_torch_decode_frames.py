@@ -4,8 +4,9 @@ versions on the CPU): held bit for bit against the benchmark's plain
 reference (``benchmark/reference/decode.py``, which imports nothing of the
 port) on seeded received K=7 frames, soft and hard; its spans
 ``decode_layout``, ``decode_acs`` and ``decode_traceback`` and its
-counters ``decode_frames``, ``decode_symbols`` and ``decode_chain_steps``
-record under a profiler session, and nothing records without one.
+counters ``decode_frames``, ``decode_symbols``, ``decode_chain_steps``
+and ``decode_pair_steps`` record under a profiler session, and nothing
+records without one.
 
 Tolerances: none, bits exactly (the same float32 additions in the same
 order, strict-less compares on both sides).
@@ -116,7 +117,8 @@ def test_spans_nest_and_counters_count_each_call(tmp_path):
     assert all(a["ts"] + a["dur"] <= b["ts"] for a, b in zip(spans, spans[1:]))
     assert profiling.counters() == {"decode_frames": 3 + 2,
                                     "decode_symbols": 3 * 306 + 2 * 200,
-                                    "decode_chain_steps": 306 + 200}
+                                    "decode_chain_steps": 306 + 200,
+                                    "decode_pair_steps": 153 + 100}
 
 
 def test_hard_path_counts_under_a_session():
@@ -129,7 +131,22 @@ def test_hard_path_counts_under_a_session():
     names = [e.name for e in prof.events()]
     assert all(names.count(s) == 1 for s in SPANS)
     assert profiling.counters() == {"decode_frames": 2, "decode_symbols": 2 * 306,
-                                    "decode_chain_steps": 306}
+                                    "decode_chain_steps": 306, "decode_pair_steps": 153}
+
+
+@pytest.mark.parametrize("key,T", [("nasa-k7", 101), ("nasa-k7", 102), ("k3-75", 101),
+                                   ("k9-r12", 102)])
+def test_pair_steps_count_kernel_4s_exchanges(key, T):
+    """``decode_pair_steps`` adds T // 2 a call at S = 64 (kernel 4's
+    two-step body), odd T and even, and 0 for a code of 4 or 256 states."""
+    code = get_code(key)
+    dists = torch.rand((2, T, code.points_per_symbol), generator=torch.Generator().manual_seed(T))
+    with profile(activities=[ProfilerActivity.CPU]):
+        long_frame_decode_stream(code, dists)
+        long_frame_decode_stream(code, dists[:1])
+    want = 2 * (T // 2) if code.num_states == 64 else 0
+    assert profiling.counters()["decode_pair_steps"] == want
+    assert profiling.counters()["decode_chain_steps"] == 2 * T
 
 
 def test_no_session_records_nothing(monkeypatch):
